@@ -1,0 +1,137 @@
+// Shared device helpers of the sobfu_tpu_torch kernels: voxel indexing, the
+// exact and K-clamped trilinear samplers, the floor-corner rule and a
+// block-wide max.
+//
+// Layouts follow the JAX package: volumes f32[Z,Y,X] with the flat index
+// (z*Y + y)*X + x (the reference's get_global_idx multiplies by dim_y*dim_y,
+// which only a cubic grid hides); fields f32[3,Z,Y,X], channels (x, y, z),
+// absolute voxel coordinates.
+//
+// Every file is compiled with --fmad=false: a*b + c stays a rounded multiply
+// and a rounded add, as in the plain torch versions the kernels are checked
+// against (the floor warp and the fuse must match them bit for bit). Where a
+// plain version itself rounds once (torch.addcmul in the fuse), the kernel
+// says so with __fmaf_rn.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sobfu {
+
+constexpr int kBlock = 256;
+
+inline int blocks_for(long long n) { return (int)((n + kBlock - 1) / kBlock); }
+
+__device__ __forceinline__ long long flat_index(int x, int y, int z, int Y, int X) {
+  return ((long long)z * Y + y) * X + x;
+}
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// One axis of a trilinear sample.
+//   exact (K < 0): i0 = floor(c), i1 = min(i0 + 1, n - 1), w1 = c - floor(c)
+//     (fields._corner_indices), blended as c0 + (c1 - c0) * w1;
+//   window (K >= 0): the displacement d = clip(c) - v is clamped to
+//     [-K, hi] (hi = K - 1e-4) and the two live taps o0 = floor(d), o0 + 1
+//     carry the hat weights max(0, 1 - |d - o|) (fields._window_taps).
+struct AxisTaps {
+  int i0, i1;
+  float w0, w1;
+};
+
+__device__ __forceinline__ AxisTaps axis_taps(float c, int v, int n, int K, float hi) {
+  AxisTaps t;
+  c = clampf(c, 0.0f, (float)(n - 1));
+  if (K < 0) {
+    const float f0 = floorf(c);
+    t.i0 = (int)f0;
+    t.i1 = min(t.i0 + 1, n - 1);
+    t.w0 = 0.0f;
+    t.w1 = c - f0;
+  } else {
+    const float d = clampf(c - (float)v, (float)(-K), hi);
+    const float o0 = floorf(d);
+    const float o1 = o0 + 1.0f;
+    t.w0 = fmaxf(0.0f, 1.0f - fabsf(d - o0));
+    t.w1 = fmaxf(0.0f, 1.0f - fabsf(d - o1));
+    t.i0 = min(max(v + (int)o0, 0), n - 1);
+    t.i1 = min(max(v + (int)o1, 0), n - 1);
+  }
+  return t;
+}
+
+struct Taps3 {
+  AxisTaps x, y, z;
+};
+
+__device__ __forceinline__ Taps3 taps3(float px, float py, float pz, int vx, int vy,
+                                       int vz, int Z, int Y, int X, int K, float hi) {
+  Taps3 t;
+  t.x = axis_taps(px, vx, X, K, hi);
+  t.y = axis_taps(py, vy, Y, K, hi);
+  t.z = axis_taps(pz, vz, Z, K, hi);
+  return t;
+}
+
+// Trilinear sample through a corner getter g(x, y, z). The summation order is
+// the plain version's: x taps inside, then y, then z.
+template <typename Get>
+__device__ __forceinline__ float trilinear(const Taps3& t, bool exact, Get g) {
+  if (exact) {
+    const float fx = t.x.w1, fy = t.y.w1, fz = t.z.w1;
+    const float c000 = g(t.x.i0, t.y.i0, t.z.i0), c100 = g(t.x.i1, t.y.i0, t.z.i0);
+    const float c010 = g(t.x.i0, t.y.i1, t.z.i0), c110 = g(t.x.i1, t.y.i1, t.z.i0);
+    const float c001 = g(t.x.i0, t.y.i0, t.z.i1), c101 = g(t.x.i1, t.y.i0, t.z.i1);
+    const float c011 = g(t.x.i0, t.y.i1, t.z.i1), c111 = g(t.x.i1, t.y.i1, t.z.i1);
+    const float c00 = c000 + (c100 - c000) * fx;
+    const float c10 = c010 + (c110 - c010) * fx;
+    const float c01 = c001 + (c101 - c001) * fx;
+    const float c11 = c011 + (c111 - c011) * fx;
+    const float c0 = c00 + (c10 - c00) * fy;
+    const float c1 = c01 + (c11 - c01) * fy;
+    return c0 + (c1 - c0) * fz;
+  }
+  const float a00 = t.x.w0 * g(t.x.i0, t.y.i0, t.z.i0) + t.x.w1 * g(t.x.i1, t.y.i0, t.z.i0);
+  const float a10 = t.x.w0 * g(t.x.i0, t.y.i1, t.z.i0) + t.x.w1 * g(t.x.i1, t.y.i1, t.z.i0);
+  const float a01 = t.x.w0 * g(t.x.i0, t.y.i0, t.z.i1) + t.x.w1 * g(t.x.i1, t.y.i0, t.z.i1);
+  const float a11 = t.x.w0 * g(t.x.i0, t.y.i1, t.z.i1) + t.x.w1 * g(t.x.i1, t.y.i1, t.z.i1);
+  const float b0 = t.y.w0 * a00 + t.y.w1 * a10;
+  const float b1 = t.y.w0 * a01 + t.y.w1 * a11;
+  return t.z.w0 * b0 + t.z.w1 * b1;
+}
+
+// Floor-corner rule on one axis: floor(clip(c)), and with a window the
+// floored displacement clamped to [-K, K]. The result is always in range.
+__device__ __forceinline__ int floor_coord(float c, int v, int n, int K) {
+  float f = floorf(clampf(c, 0.0f, (float)(n - 1)));
+  if (K >= 0) f = (float)v + clampf(f - (float)v, (float)(-K), (float)K);
+  return (int)f;
+}
+
+// NaN-propagating max, so a NaN update stops the solve as it does in JAX.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Block-wide max of a non-negative value, folded into *out with atomicMax
+// on its bits (the order of non-negative floats is that of their bits).
+// Every thread of the block must call it.
+__device__ __forceinline__ void block_max_atomic(float v, unsigned int* out) {
+  __shared__ float warp_max[kBlock / 32];
+  for (int off = 16; off > 0; off >>= 1)
+    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) warp_max[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = lane < kBlock / 32 ? warp_max[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
+    if (lane == 0) atomicMax(out, __float_as_uint(v));
+  }
+}
+
+}  // namespace sobfu

@@ -1,0 +1,111 @@
+"""I/O: depth/mask loading, VTK mesh export, VTI field export.
+
+PyTorch-port counterpart of ``sobfu_tpu.io`` (pure Python + PIL; the native
+C++ loader and writer are not used). Formats are the reference app's
+(src/apps/demo.cpp:177-283): legacy-ASCII ``.vtk`` PolyData meshes, XML
+``.vti`` displacement fields, 16-bit PNG depth in millimetres masked by
+optional ``omask`` images.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import List, Tuple
+
+import numpy as np
+
+from sobfu_tpu_torch.mc import Mesh
+
+
+def load_depth(path: str) -> np.ndarray:
+    """Load a 16-bit depth PNG (mm) -> uint16 [H, W]."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        arr = np.asarray(img)
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr.astype(np.uint16)
+
+
+def load_mask(path: str) -> np.ndarray:
+    """Object mask: nonzero pixels keep depth (demo.cpp:314-330)."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        arr = np.asarray(img)
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr > 0
+
+
+def apply_mask(depth: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    return np.where(mask, depth, 0).astype(np.uint16)
+
+
+def list_frames(data_dir: str) -> Tuple[List[str], List[str], List[str]]:
+    """Sorted depth/color/mask file lists of a reference-layout scene dir
+    (<dir>/depth, <dir>/color, optional <dir>/omask; demo.cpp:177-198)."""
+    depth_dir = os.path.join(data_dir, "depth")
+    color_dir = os.path.join(data_dir, "color")
+    if not os.path.isdir(depth_dir) or not os.path.isdir(color_dir):
+        raise FileNotFoundError(
+            f"source directory {data_dir} should contain 'color' and 'depth' folders"
+        )
+
+    def listing(d):
+        return sorted(os.path.join(d, f) for f in os.listdir(d) if not f.startswith("."))
+
+    mask_dir = os.path.join(data_dir, "omask")
+    masks = listing(mask_dir) if os.path.isdir(mask_dir) else []
+    return listing(depth_dir), listing(color_dir), masks
+
+
+def save_mesh_vtk(mesh: Mesh, path: str) -> None:
+    """Write a triangle mesh as legacy ASCII VTK PolyData (POINTS +
+    POLYGONS, the pcl::io::saveVTKFile contract, demo.cpp:237-246)."""
+    v = np.asarray(mesh.vertices, dtype=np.float32)
+    n_pts = v.shape[0]
+    n_tri = n_pts // 3
+    polys = np.arange(n_tri * 3, dtype=np.int32).reshape(-1, 3)
+    with open(path, "wb") as f:
+        f.write(b"# vtk DataFile Version 3.0\n")
+        f.write(b"sobfu_tpu_torch mesh\n")
+        f.write(b"ASCII\n")
+        f.write(b"DATASET POLYDATA\n")
+        f.write(f"POINTS {n_pts} float\n".encode())
+        np.savetxt(f, v, fmt="%.6g")
+        f.write(f"POLYGONS {n_tri} {n_tri * 4}\n".encode())
+        np.savetxt(f, np.hstack([np.full((n_tri, 1), 3, np.int32), polys]), fmt="%d")
+
+
+def save_field_vti(field_disp: np.ndarray, path: str, spacing=(1.0, 1.0, 1.0)) -> None:
+    """Write a displacement field f32[3, Z, Y, X] as an XML .vti file with a
+    3-component 'displacement' array (appended raw, little endian)."""
+    C, Z, Y, X = field_disp.shape
+    if C != 3:
+        raise ValueError(f"expected a 3-channel field, got {C} channels")
+    data = np.ascontiguousarray(np.moveaxis(np.asarray(field_disp), 0, -1), dtype="<f4")
+    raw = data.tobytes()
+    with open(path, "wb") as f:
+        f.write(b'<?xml version="1.0"?>\n')
+        f.write(
+            b'<VTKFile type="ImageData" version="1.0" byte_order="LittleEndian" '
+            b'header_type="UInt64">\n'
+        )
+        f.write(
+            f'<ImageData WholeExtent="0 {X - 1} 0 {Y - 1} 0 {Z - 1}" '
+            f'Origin="0 0 0" Spacing="{spacing[0]} {spacing[1]} {spacing[2]}">\n'.encode()
+        )
+        f.write(f'<Piece Extent="0 {X - 1} 0 {Y - 1} 0 {Z - 1}">\n'.encode())
+        f.write(b'<PointData Vectors="displacement">\n')
+        f.write(
+            b'<DataArray type="Float32" Name="displacement" NumberOfComponents="3" '
+            b'format="appended" offset="0"/>\n'
+        )
+        f.write(b"</PointData>\n<CellData/>\n</Piece>\n</ImageData>\n")
+        f.write(b'<AppendedData encoding="raw">\n_')
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        f.write(b"\n</AppendedData>\n</VTKFile>\n")

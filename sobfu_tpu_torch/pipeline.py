@@ -1,0 +1,250 @@
+"""The SobFusion pipeline: depth stream -> deforming TSDF reconstruction.
+
+PyTorch counterpart of ``sobfu_tpu.pipeline`` (reference
+src/sobfu/sob_fusion.cpp):
+
+  frame 0:   bilateral filter -> depth truncation -> dists ->
+             integrate into phi_global; allocate phi_*, psi, psi_inv, solver
+  frame n:   if n < start_frame: integrate phi_n and fuse it rigidly
+             else :func:`fused_frame_step`: integrate phi_n, estimate psi
+             (Sobolev GD), fuse phi_n o psi into phi_global
+
+All state lives on the device given to :class:`SobFusion`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sobfu_tpu_torch import core, fields
+from sobfu_tpu_torch import solver as solver_mod
+from sobfu_tpu_torch.config import Params
+from sobfu_tpu_torch.fields import DeformationField
+from sobfu_tpu_torch.ops import imgproc, kernels
+from sobfu_tpu_torch.tsdf import TsdfVolume, fuse_volumes, fuse_volumes_gated, integrate_dists
+
+
+def preprocess(depth: torch.Tensor, p: Params) -> torch.Tensor:
+    """Bilateral filter -> depth truncation -> dists (metres)."""
+    filtered = imgproc.bilateral_filter(
+        depth, p.bilateral_kernel_size, p.bilateral_sigma_spatial, p.bilateral_sigma_depth
+    )
+    if p.icp_truncate_depth_dist > 0:
+        filtered = imgproc.truncate_depth(filtered, p.icp_truncate_depth_dist)
+    return imgproc.compute_dists(filtered, p.intr)
+
+
+def fused_frame_step(
+    depth: torch.Tensor,
+    phi_global: TsdfVolume,
+    psi: torch.Tensor,
+    solver: solver_mod.Solver,
+    vol2cam: np.ndarray,
+    psi_inv0: Optional[torch.Tensor] = None,
+    *,
+    skip_inv_warps: bool = False,
+    skip_weight_warp: bool = False,
+):
+    """One complete non-rigid frame (``sobfu_tpu.pipeline.fused_frame_step``,
+    additive): preprocess -> integrate phi_n -> solve -> fuse.
+
+    skip_weight_warp: the solve returns weight_n unwarped and the fuse runs
+    as the warp_fuse kernel, which floor-warps it at psi itself (the no-log
+    loop). The port applies the exact rule when no window is set.
+
+    Returns (tsdf_g', weight_g', tsdf_n, weight_n, SolveResult).
+    """
+    p = solver.params
+    dists = preprocess(depth, p)
+    zeros = torch.zeros(phi_global.dims_zyx, dtype=torch.float32, device=depth.device)
+    tn, wn = integrate_dists(
+        zeros, zeros, dists, vol2cam, p.intr, phi_global.voxel_sizes(),
+        phi_global.trunc_dist, phi_global.eta,
+        axis_aligned=bool(np.allclose(vol2cam[:3, :3], np.eye(3), atol=1e-6)),
+    )
+    tg, wg = phi_global.tsdf, phi_global.weight
+    res = solver_mod.estimate_psi(
+        psi, tg, wg, tn, wn, solver.taps, p.alpha, p.w_reg, p.max_iter,
+        p.max_update_norm, psi_inv0,
+        skip_inv_warps=skip_inv_warps,
+        skip_weight_warp=skip_weight_warp,
+        **solver.solve_kwargs(),
+    )
+    K = solver.warp_window
+    gate = float(getattr(p, "new_surface_gate", 0.0) or 0.0)
+    if gate > 0:
+        # surface-confidence gate on new canonical surface
+        wnp = res.weight_n_psi
+        if skip_weight_warp:
+            wnp = kernels.warp(wn[None], res.psi, K, (True,))[0]
+            res = res._replace(weight_n_psi=wnp)
+        disp_norm = torch.amax(torch.abs(fields.displacement(res.psi)), dim=0)
+        tg2, wg2 = fuse_volumes_gated(
+            tg, wg, res.tsdf_n_psi, wnp, phi_global.max_weight, disp_norm, gate
+        )
+    elif skip_weight_warp:
+        tg2, wg2 = kernels.warp_fuse(
+            tg, wg, res.tsdf_n_psi, wn, res.psi, phi_global.max_weight, K
+        )
+    else:
+        tg2, wg2 = fuse_volumes(
+            tg, wg, res.tsdf_n_psi, res.weight_n_psi, phi_global.max_weight
+        )
+    return tg2, wg2, tn, wn, res
+
+
+class SobFusion:
+    """Stateful frame loop (reference include/sobfu/sob_fusion.hpp:21-74).
+
+    device: where every volume and field lives ("cuda" or "cpu"); "cuda"
+    without a card raises.
+    """
+
+    def __init__(self, params: Params, device="cuda"):
+        self.params = params
+        self.device = core.resolve_device(device)
+        self.frame_counter = 0
+        self.poses = [np.eye(4, dtype=np.float32)]
+        # phi_global o psi_inv and phi_n_psi.weight are per-frame products
+        # with no consumer in the no-log loop (the CLI clears this without
+        # --enable-log); the mesh getters refresh them on demand
+        self.need_inv_warps = True
+        self._inv_warps_stale = False
+        self._n_psi_weight_stale = False
+
+        self.phi_global: Optional[TsdfVolume] = None
+        self.phi_global_psi_inv: Optional[TsdfVolume] = None
+        self.phi_n: Optional[TsdfVolume] = None
+        self.phi_n_psi: Optional[TsdfVolume] = None
+        self.psi: Optional[DeformationField] = None
+        self.psi_inv: Optional[DeformationField] = None
+        self.solver: Optional[solver_mod.Solver] = None
+        self.last_solve = None
+
+    def _depth_tensor(self, depth) -> torch.Tensor:
+        d = torch.as_tensor(np.asarray(depth).astype(np.int32)) if not isinstance(
+            depth, torch.Tensor
+        ) else depth.to(torch.int32)
+        return d.to(self.device)
+
+    # -- per-frame entry (reference sob_fusion.cpp:71-145) -------------------
+    def __call__(self, depth) -> bool:
+        """Process one depth frame (mm; numpy uint16 or a torch tensor)."""
+        p = self.params
+        if p.verbosity > 0:
+            print(f"--- FRAME NO. {self.frame_counter} ---")
+        depth = self._depth_tensor(depth)
+
+        if self.frame_counter == 0:
+            self.solver = solver_mod.Solver(p)
+            self.phi_global = TsdfVolume(p, self.device)
+            self.phi_global.integrate(preprocess(depth, p), self.poses[-1], p.intr)
+            self.phi_global_psi_inv = TsdfVolume(p, self.device)
+            self.phi_n = TsdfVolume(p, self.device)
+            self.phi_n_psi = TsdfVolume(p, self.device)
+            self.psi = DeformationField(p.volume_dims, device=self.device)
+            self.psi_inv = DeformationField(p.volume_dims, device=self.device)
+            self.frame_counter += 1
+            return True
+
+        if self.frame_counter < p.start_frame:
+            self.phi_n.clear()
+            self.phi_n.integrate(preprocess(depth, p), self.poses[-1], p.intr)
+            self.phi_global.integrate_volume(self.phi_n)
+            self.frame_counter += 1
+            return True
+
+        psi_inv0 = self.psi_inv.data if self.solver.inverse_warm else None
+        if p.verbosity == 0:
+            vol2cam = (
+                np.linalg.inv(np.asarray(self.poses[-1], np.float32))
+                @ self.phi_global.pose
+            )
+            skip_weight_warp = not self.need_inv_warps
+            tg2, wg2, tn, wn, res = fused_frame_step(
+                depth, self.phi_global, self.psi.data, self.solver, vol2cam, psi_inv0,
+                skip_inv_warps=not self.need_inv_warps,
+                skip_weight_warp=skip_weight_warp,
+            )
+            self.phi_n.tsdf, self.phi_n.weight = tn, wn
+            self.psi.data = res.psi
+            self.psi_inv.data = res.psi_inv
+            self.phi_n_psi.tsdf = res.tsdf_n_psi
+            self.phi_n_psi.weight = res.weight_n_psi
+            self._n_psi_weight_stale = bool(
+                skip_weight_warp and not getattr(p, "new_surface_gate", 0.0)
+            )
+            if self.need_inv_warps:
+                self.phi_global_psi_inv.tsdf = res.tsdf_global_psi_inv
+                self.phi_global_psi_inv.weight = res.weight_global_psi_inv
+            else:
+                self._inv_warps_stale = True
+            self.phi_global.tsdf, self.phi_global.weight = tg2, wg2
+            self.last_solve = res
+        else:
+            # staged path: the solver records and prints per-iteration energies
+            self.phi_n.clear()
+            self.phi_n.integrate(preprocess(depth, p), self.poses[-1], p.intr)
+            self.last_solve = self.solver.estimate_psi(
+                self.phi_global, self.phi_global_psi_inv, self.phi_n, self.phi_n_psi,
+                self.psi, self.psi_inv,
+            )
+            gate = float(getattr(p, "new_surface_gate", 0.0) or 0.0)
+            if gate > 0:
+                disp_norm = torch.amax(torch.abs(fields.displacement(self.psi.data)), dim=0)
+                self.phi_global.tsdf, self.phi_global.weight = fuse_volumes_gated(
+                    self.phi_global.tsdf, self.phi_global.weight,
+                    self.phi_n_psi.tsdf, self.phi_n_psi.weight,
+                    self.phi_global.max_weight, disp_norm, gate,
+                )
+            else:
+                self.phi_global.integrate_volume(self.phi_n_psi)
+
+        self.frame_counter += 1
+        return True
+
+    # -- mesh getters (reference sob_fusion.cpp:43-49, 147-158) --------------
+    def _get_mesh(self, vol: TsdfVolume):
+        from sobfu_tpu_torch import mc
+
+        return mc.extract_mesh(vol.tsdf, vol.weight, vol.voxel_sizes(), pose=vol.pose)
+
+    def get_phi_global_mesh(self):
+        return self._get_mesh(self.phi_global)
+
+    def _refresh_inv_warps(self):
+        """Recompute phi_global o psi_inv on demand (skipped in the frame
+        step when no per-frame consumer exists — see need_inv_warps)."""
+        both = kernels.warp(
+            torch.stack([self.phi_global.tsdf, self.phi_global.weight]),
+            self.psi_inv.data, self.solver.warp_window, (False, True),
+        )
+        self.phi_global_psi_inv.tsdf, self.phi_global_psi_inv.weight = both[0], both[1]
+        self._inv_warps_stale = False
+
+    def get_phi_global_psi_inv_mesh(self):
+        if self._inv_warps_stale:
+            self._refresh_inv_warps()
+        return self._get_mesh(self.phi_global_psi_inv)
+
+    def get_phi_n_mesh(self):
+        return self._get_mesh(self.phi_n)
+
+    def _refresh_n_psi_weight(self):
+        """Recompute phi_n_psi.weight on demand: the warp_fuse kernel warps
+        weight_n in place of a standalone warped copy."""
+        self.phi_n_psi.weight = kernels.warp(
+            self.phi_n.weight[None], self.psi.data, self.solver.warp_window, (True,)
+        )[0]
+        self._n_psi_weight_stale = False
+
+    def get_phi_n_psi_mesh(self):
+        if self._n_psi_weight_stale:
+            self._refresh_n_psi_weight()
+        return self._get_mesh(self.phi_n_psi)
+
+    def get_deformation_field(self) -> DeformationField:
+        return self.psi

@@ -1,0 +1,189 @@
+"""TSDF volumes: projective integration, volume fusion, the sphere fixture.
+
+PyTorch counterpart of ``sobfu_tpu.tsdf``. State is a pair of tensors
+``tsdf: f32[Z,Y,X]`` (normalised to [-1, 1]) and ``weight: f32[Z,Y,X]`` on
+the volume's device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from sobfu_tpu_torch.config import Intr, Params
+
+
+def voxel_centers(dims_zyx, voxel_sizes_xyz, device=None) -> torch.Tensor:
+    """Metric voxel centres -> f32[3,Z,Y,X], channels (x,y,z)
+    (reference tsdf_volume.cu:70-74)."""
+    Z, Y, X = dims_zyx
+    vsx, vsy, vsz = (torch.as_tensor(v, dtype=torch.float32) for v in voxel_sizes_xyz)
+    ar = lambda n: torch.arange(n, dtype=torch.float32, device=device) + 0.5  # noqa: E731
+    zz, yy, xx = torch.meshgrid(
+        ar(Z) * vsz.to(device), ar(Y) * vsy.to(device), ar(X) * vsx.to(device),
+        indexing="ij",
+    )
+    return torch.stack([xx, yy, zz], dim=0)
+
+
+def _truncate(sdf: torch.Tensor, trunc_dist) -> torch.Tensor:
+    return torch.clamp(sdf / trunc_dist, -1.0, 1.0)
+
+
+def integrate_dists(
+    tsdf: torch.Tensor,
+    weight: torch.Tensor,
+    dists: torch.Tensor,
+    vol2cam: np.ndarray,
+    intr: Intr,
+    voxel_sizes,
+    trunc_dist: float,
+    eta: float,
+    axis_aligned: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Projective TSDF integration of a metric ray-length ('dists') map
+    (reference tsdf_volume.cu:62-101): per voxel, project the centre, read
+    dists at the floor pixel, psdf = Dp - z_cam; weight = psdf > -eta,
+    value = clip(psdf / trunc, -1, 1). Voxels outside the image, with
+    Dp <= 0 or z_cam <= 0 keep their previous (tsdf, weight).
+
+    axis_aligned: the caller certifies vol2cam[:3,:3] == I. Then
+    u = fx*xs*(1/zs) + cx depends on (z, x) only and v on (z, y) only — the
+    arithmetic of the JAX package's separable path — and the image read
+    is a direct index dists[v(z,y), u(z,x)].
+    """
+    dev = tsdf.device
+    Z, Y, X = tsdf.shape
+    H, W = dists.shape
+    f32 = lambda a: torch.as_tensor(np.float32(a), device=dev)  # noqa: E731
+    fx, fy, cx, cy = (f32(v) for v in intr)
+    vsx, vsy, vsz = (f32(v) for v in voxel_sizes)
+    m = torch.as_tensor(np.asarray(vol2cam, np.float32), device=dev)
+    t = m[:3, 3]
+    if axis_aligned:
+        # a*b + c as one rounding (addcmul), as XLA fuses the JAX package's
+        # separable path into multiply-adds: the projection then lands on the
+        # same pixel and the tsdf matches bit for bit
+        ar = lambda n: torch.arange(n, dtype=torch.float32, device=dev) + 0.5  # noqa: E731
+        xs = torch.addcmul(t[0], ar(X), vsx)
+        ys = torch.addcmul(t[1], ar(Y), vsy)
+        zs = torch.addcmul(t[2], ar(Z), vsz)
+        inv_z = 1.0 / zs
+        u = torch.addcmul(cx, fx * xs[None, :], inv_z[:, None])  # f32[Z, X]
+        v = torch.addcmul(cy, fy * ys[None, :], inv_z[:, None])  # f32[Z, Y]
+        in_u = (u >= 0) & (u < W)
+        in_v = (v >= 0) & (v < H)
+        ui = torch.floor(u).long().clamp(0, W - 1)
+        vi = torch.floor(v).long().clamp(0, H - 1)
+        Dp = dists[vi[:, :, None], ui[:, None, :]]
+        cam_z = zs[:, None, None]
+        in_image = in_v[:, :, None] & in_u[:, None, :]
+    else:
+        vc = voxel_centers((Z, Y, X), voxel_sizes, device=dev)
+        cam = torch.einsum("ij,jzyx->izyx", m[:3, :3], vc) + t[:, None, None, None]
+        u = fx * (cam[0] / cam[2]) + cx
+        v = fy * (cam[1] / cam[2]) + cy
+        in_image = (u >= 0) & (v >= 0) & (u < W) & (v < H)
+        ui = torch.floor(u).long().clamp(0, W - 1)
+        vi = torch.floor(v).long().clamp(0, H - 1)
+        Dp = torch.take(dists, vi * W + ui)
+        cam_z = cam[2]
+    valid = in_image & (Dp > 0.0) & (cam_z > 0.0)
+    psdf = Dp - cam_z
+    new_w = torch.where(psdf > -np.float32(eta), 1.0, 0.0)
+    new_t = _truncate(psdf, f32(trunc_dist))
+    return torch.where(valid, new_t, tsdf), torch.where(valid, new_w, weight)
+
+
+def _blend_numerator(tsdf_g, weight_g, tsdf_n):
+    """weight_g * tsdf_g + tsdf_n as ONE fused multiply-add (torch.addcmul),
+    the rounding XLA gives ``sobfu_tpu.tsdf.fuse_volumes`` and the
+    warp_fuse kernel's __fmaf_rn: the three agree bit for bit."""
+    return torch.addcmul(tsdf_n, weight_g, tsdf_g)
+
+
+def fuse_volumes(tsdf_g, weight_g, tsdf_n, weight_n, max_weight):
+    """Running weighted average of a warped live volume into the global one
+    (reference tsdf_volume.cu:103-130): skip voxels whose incoming weight is
+    0, or 1 with tsdf in {0, -1}; otherwise
+        t_new = (w_prev * t_prev + t) / (w_prev + 1)
+        w_new = min(w_prev + 1, max_weight)
+    """
+    skip = (weight_n == 0.0) | (
+        (weight_n == 1.0) & ((tsdf_n == 0.0) | (tsdf_n == -1.0))
+    )
+    t_new = _blend_numerator(tsdf_g, weight_g, tsdf_n) / (weight_g + 1.0)
+    w_new = torch.clamp(weight_g + 1.0, max=float(np.float32(max_weight)))
+    return torch.where(skip, tsdf_g, t_new), torch.where(skip, weight_g, w_new)
+
+
+def fuse_volumes_gated(tsdf_g, weight_g, tsdf_n, weight_n, max_weight, disp_norm, gate_vox):
+    """:func:`fuse_volumes` where a voxel without canonical support
+    (weight_g == 0) accepts new surface only where disp_norm <= gate_vox
+    (``sobfu_tpu.tsdf.fuse_volumes_gated``; NEW_SURFACE_GATE)."""
+    skip = (weight_n == 0.0) | (
+        (weight_n == 1.0) & ((tsdf_n == 0.0) | (tsdf_n == -1.0))
+    )
+    skip = skip | ((weight_g == 0.0) & (disp_norm > np.float32(gate_vox)))
+    t_new = _blend_numerator(tsdf_g, weight_g, tsdf_n) / (weight_g + 1.0)
+    w_new = torch.clamp(weight_g + 1.0, max=float(np.float32(max_weight)))
+    return torch.where(skip, tsdf_g, t_new), torch.where(skip, weight_g, w_new)
+
+
+def init_sphere(dims_zyx, voxel_sizes_xyz, centre_xyz, radius, trunc_dist, eta, device=None):
+    """SDF of a sphere; weight = (sdf > -eta) (reference tsdf_volume.cu:249-275)."""
+    vc = voxel_centers(dims_zyx, voxel_sizes_xyz, device=device)
+    c = torch.as_tensor(np.asarray(centre_xyz, np.float32), device=device)
+    sdf = torch.linalg.vector_norm(vc - c[:, None, None, None], dim=0) - np.float32(radius)
+    w = torch.where(sdf > -np.float32(eta), 1.0, 0.0)
+    return _truncate(sdf, np.float32(trunc_dist)), w
+
+
+class TsdfVolume:
+    """Reference kfusion::cuda::TsdfVolume surface (dims/size (X, Y, Z);
+    arrays [Z, Y, X] on ``device``)."""
+
+    def __init__(self, params: Params, device="cpu"):
+        self.device = torch.device(device)
+        self.dims = tuple(int(d) for d in params.volume_dims)  # (X, Y, Z)
+        self.size = tuple(float(s) for s in params.volume_size)
+        self.pose = np.asarray(params.volume_pose, dtype=np.float32)
+        self.trunc_dist = float(params.tsdf_trunc_dist)
+        self.eta = float(params.eta)
+        self.max_weight = float(params.tsdf_max_weight)
+        self.gradient_delta_factor = float(params.gradient_delta_factor)
+        self.clear()
+
+    @property
+    def dims_zyx(self) -> Tuple[int, int, int]:
+        return (self.dims[2], self.dims[1], self.dims[0])
+
+    def voxel_sizes(self) -> Tuple[float, float, float]:
+        return tuple(self.size[i] / self.dims[i] for i in range(3))
+
+    def clear(self) -> None:
+        self.tsdf = torch.zeros(self.dims_zyx, dtype=torch.float32, device=self.device)
+        self.weight = torch.zeros(self.dims_zyx, dtype=torch.float32, device=self.device)
+
+    def integrate(self, dists: torch.Tensor, camera_pose: np.ndarray, intr: Intr) -> None:
+        """Depth-map (dists) integration; camera_pose is a 4x4 affine."""
+        vol2cam = np.linalg.inv(np.asarray(camera_pose, np.float32)) @ self.pose
+        self.tsdf, self.weight = integrate_dists(
+            self.tsdf, self.weight, dists, vol2cam, intr, self.voxel_sizes(),
+            self.trunc_dist, self.eta,
+            axis_aligned=bool(np.allclose(vol2cam[:3, :3], np.eye(3), atol=1e-6)),
+        )
+
+    def integrate_volume(self, other: "TsdfVolume") -> None:
+        """Fuse another (warped live) volume into this one."""
+        self.tsdf, self.weight = fuse_volumes(
+            self.tsdf, self.weight, other.tsdf, other.weight, self.max_weight
+        )
+
+    def init_sphere(self, centre_xyz, radius) -> None:
+        self.tsdf, self.weight = init_sphere(
+            self.dims_zyx, self.voxel_sizes(), centre_xyz, radius,
+            self.trunc_dist, self.eta, device=self.device,
+        )

@@ -1,0 +1,95 @@
+"""Config parity and the port's import / device guards."""
+
+import dataclasses
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sobfu_tpu import config as jc
+from sobfu_tpu_torch import config as tc
+
+# small tensors, and the suite runs one worker per core: one torch thread each
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+INIS = sorted(glob.glob(os.path.join(ROOT, "params", "*.ini")))
+
+
+def test_seven_shipped_inis():
+    assert len(INIS) == 7
+
+
+@pytest.mark.parametrize("ini", INIS, ids=os.path.basename)
+def test_load_params_matches_jax(ini):
+    want = jc.load_params(ini, verbosity=1)
+    got = tc.load_params(ini, verbosity=1)
+    for f in dataclasses.fields(jc.Params):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+            assert a.dtype == b.dtype
+        else:
+            assert a == b and type(a).__name__ == type(b).__name__, f.name
+    assert [f.name for f in dataclasses.fields(tc.Params)] == [
+        f.name for f in dataclasses.fields(jc.Params)
+    ]
+
+
+def test_tpu_extension_keys_parse_the_same(tmp_path):
+    ini = tmp_path / "p.ini"
+    ini.write_text(
+        "VOL_DIMS_X=32\nWARP_WINDOW=2\nUSE_PALLAS=1\nSOLVER_MODE=additive\n"
+        "MOMENTUM=0.9\nZ_CHUNKS=4\nCONV_MXU=true\nWARP_PALLAS=yes\nINVERSE_ITERS=5\n"
+        "INVERSE_WARM=0\nPYRAMID_LEVELS=1\nFUSED_PALLAS=0\nINCREMENTAL_INV=1\n"
+        "FINE_WINDOW=1\nSTALL_WINDOW=16\nSTALL_REL=0.01\nINNER_STEPS=0\n"
+        "NEW_SURFACE_GATE=1.5\nINV_MULTIGRID=0\n"
+    )
+    a, b = tc.load_params(str(ini)), jc.load_params(str(ini))
+    for f in dataclasses.fields(jc.Params):
+        if f.name != "volume_pose":
+            assert getattr(a, f.name) == getattr(b, f.name), f.name
+
+
+def test_port_imports_no_jax():
+    """The port never imports jax or sobfu_tpu (whose __init__ pulls in jax)."""
+    code = (
+        "import sys, sobfu_tpu_torch, sobfu_tpu_torch.cli, sobfu_tpu_torch.ops.kernels, "
+        "sobfu_tpu_torch.mc, sobfu_tpu_torch.io, sobfu_tpu_torch.core\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'sobfu_tpu' or m.startswith('sobfu_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_cuda_device_without_card_raises():
+    from sobfu_tpu_torch import core
+
+    if torch.cuda.is_available():
+        assert core.resolve_device("cuda").type == "cuda"
+        return
+    assert core.get_device_count() == 0
+    with pytest.raises(RuntimeError, match="is_available"):
+        core.resolve_device("cuda")
+    from sobfu_tpu_torch.pipeline import SobFusion
+
+    with pytest.raises(RuntimeError):
+        SobFusion(tc.Params())  # the default device is cuda
+
+
+@pytest.mark.parametrize("flag", ["--enable-viz", "--enable-viz-detailed", "--live-viz",
+                                  "--color-mesh", "--checkpoint=x", "--resume=x"])
+def test_cli_unported_flags_exit_with_error(flag, capsys):
+    from sobfu_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["scene", "params.ini", flag])
+    assert e.value.code != 0
+    assert "not ported" in capsys.readouterr().err

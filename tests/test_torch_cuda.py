@@ -1,0 +1,127 @@
+"""The CUDA kernels on the card: each against its plain torch version.
+
+Every test here needs a CUDA card (marker ``cuda``) and skips without one.
+The file imports neither jax nor sobfu_tpu, so it runs where only torch is
+installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: atol 1e-5 (the JAX kernel tests' bound) for the trilinear
+outputs — the kernels are built with --fmad=false and add in the plain
+versions' order, so they land on the same bits in practice; bitwise for the
+floor-corner warp and the fuse.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from sobfu_tpu_torch import fields, solver
+from sobfu_tpu_torch.ops import kernels
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DIMS = (12, 16, 20)  # non-cubic: catches a (z*Y + y)*X + x indexing slip
+GD_CASES = [(1, 3, None), (2, 7, None), (2, 7, 0.9), (1, 3, 0.9), (None, 7, None)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(dev, amp, seed=2):
+    rng = np.random.default_rng(seed)
+    ident = np.stack(np.meshgrid(*[np.arange(d) for d in DIMS], indexing="ij")[::-1])
+    arrays = dict(
+        tg=rng.standard_normal(DIMS),
+        live=rng.standard_normal(DIMS),
+        psi=ident + rng.uniform(-amp, amp, (3,) + DIMS),
+        tnp=rng.standard_normal(DIMS),
+        vel=rng.standard_normal((3,) + DIMS),
+    )
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in arrays.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,s,momentum", GD_CASES)
+def test_gd_iteration_kernel_matches_plain(cuda, K, s, momentum):
+    d = _inputs(cuda, 1.5)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(s, 0.1), device=cuda)
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, momentum, K)
+    got, want = kernels.gd_iteration(*args), kernels.gd_iteration_plain(*args)
+    for g, w in zip(got[:3], want[:3]):
+        if w is not None:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[3], want[3], atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 1, 2])
+def test_warp_kernel_matches_plain(cuda, K):
+    d = _inputs(cuda, 3.0)
+    vol = torch.stack([d["tg"], d["live"].abs().round()])
+    got = kernels.warp(vol, d["psi"], K, (False, True))
+    want = kernels.warp_plain(vol, d["psi"], K, (False, True))
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,iters,warm", [(2, 3, True), (2, 3, False), (None, 48, False)])
+def test_inverse_kernel_matches_plain(cuda, K, iters, warm):
+    d = _inputs(cuda, 0.3)
+    init = _inputs(cuda, 0.2, seed=7)["psi"] if warm else None
+    got = kernels.inverse_fixed_point(d["psi"], iters, K, init)
+    want = kernels.inverse_fixed_point_plain(d["psi"], iters, K, init)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 2])
+def test_warp_fuse_kernel_bitwise(cuda, K):
+    d = _inputs(cuda, 3.0)
+    wg = d["live"].abs().round()
+    wn = (d["tnp"] > 0).float()
+    tnp = torch.where(d["vel"][0] > 1.0, 0.0, d["tnp"])
+    args = (d["tg"], wg, tnp, wn, d["psi"], 2.0, K)
+    got, want = kernels.warp_fuse(*args), kernels.warp_fuse_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_wrappers_validate_operands(cuda):
+    d = _inputs(cuda, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.warp(d["tg"][None].double(), d["psi"], 2, (False,))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.warp(d["tg"].transpose(0, 2)[None], d["psi"].transpose(1, 3), 2, (False,))
+    with pytest.raises(ValueError, match="shape"):
+        kernels.inverse_fixed_point(d["psi"][:, :4].contiguous(), 3, 2, init=d["psi"])
+    with pytest.raises(ValueError, match="on cpu"):
+        kernels.warp_fuse(d["tg"], d["tg"], d["tg"], d["tg"].cpu(), d["psi"], 64.0, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,K", [("solver_16.npz", None), ("solver_16_window.npz", 2)])
+def test_solver_on_card_matches_golden(cuda, name, K):
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dims, vs = (16, 16, 16), 0.25 / 16
+    tg, wg = init_sphere(dims, (vs,) * 3, (0.125,) * 3, 0.04, 8 * vs, 3 * vs, device=cuda)
+    tn, wn = init_sphere(dims, (vs,) * 3, (0.118, 0.125, 0.125), 0.04, 8 * vs, 3 * vs,
+                         device=cuda)
+    kernels.reset_launch_counts()
+    res = solver.estimate_psi(
+        fields.identity_field(dims, device=cuda), tg, wg, tn, wn,
+        solver.sobolev_filter_1d(7, 0.1), 0.1, 0.3, 32, -1.0, inverse_iters=8, warp_window=K,
+    )
+    assert kernels.launch_counts["gd_iteration"] == 32
+    assert kernels.launch_counts["inverse_fixed_point"] == 1
+    g = np.load(os.path.join(ROOT, "tests", "golden", name))
+    np.testing.assert_allclose(res.psi.cpu().numpy(), g["psi"], atol=1e-5)
+    np.testing.assert_allclose(res.tsdf_n_psi.cpu().numpy(), g["tnp"], atol=1e-5)
+    np.testing.assert_allclose(res.psi_inv.cpu().numpy(), g["psi_inv"], atol=1e-5)

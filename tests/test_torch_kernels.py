@@ -1,0 +1,174 @@
+"""The four kernel wrappers of sobfu_tpu_torch.ops.kernels.
+
+On the CPU each wrapper runs its plain torch version; these are held to the
+JAX package's XLA references — the same references its own Pallas tests use
+(tests/test_pallas.py: _xla_step, sample_*_window, estimate_inverse_window,
+sample_nearest_floor_window + fuse_volumes). Inputs come from numpy with a
+seed. tests/test_torch_cuda.py holds each kernel to its plain version on a
+CUDA card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sobfu_tpu import fields as jf
+from sobfu_tpu import solver as js
+from sobfu_tpu.tsdf import fuse_volumes as j_fuse
+from sobfu_tpu_torch.ops import kernels
+
+# small tensors, and the suite runs one worker per core: one torch thread each
+torch.set_num_threads(1)
+
+DIMS = (12, 16, 20)  # non-cubic: catches a (z*Y + y)*X + x indexing slip
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _inputs(dims=DIMS, amp=1.5, seed=2):
+    """tg, live, psi, tnp, vel as numpy f32 (psi = identity + noise)."""
+    rng = np.random.default_rng(seed)
+    ident = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")[::-1])
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return dict(
+        tg=f(rng.standard_normal(dims)),
+        live=f(rng.standard_normal(dims)),
+        psi=f(ident + rng.uniform(-amp, amp, (3,) + dims)),
+        tnp=f(rng.standard_normal(dims)),
+        vel=f(rng.standard_normal((3,) + dims)),
+    )
+
+
+def _jax_step(d, taps, alpha, w_reg, momentum, K):
+    """solver.estimate_psi's XLA iteration (tests/test_pallas.py _xla_step,
+    with momentum and the exact warp)."""
+    psi, tnp, tg, live = (jnp.asarray(d[k]) for k in ("psi", "tnp", "tg", "live"))
+    grad = jf.tsdf_gradient(tnp)
+    lap = jf.neg_laplacian(psi)
+    dU_S = js.sobolev_smooth((tnp - tg)[None] * grad + w_reg * lap, jnp.asarray(taps))
+    vel = None
+    if momentum is not None:
+        vel = momentum * jnp.asarray(d["vel"]) + dU_S
+        upd = alpha * vel
+    else:
+        upd = alpha * dU_S
+    psi_new = psi - upd
+    if K is None:
+        tnp_new = jf.sample_trilinear(live, psi_new)
+    else:
+        tnp_new = jf.sample_trilinear_window(live, psi_new, K)
+    return psi_new, tnp_new, vel, float(jnp.max(jnp.sum(upd * upd, axis=0)))
+
+
+# (K, taps, momentum): the TPU kernel tests' cases plus the exact warp
+GD_CASES = [(1, 3, None), (2, 7, None), (2, 7, 0.9), (1, 3, 0.9), (None, 7, None)]
+
+
+@pytest.mark.parametrize("K,s,momentum", GD_CASES)
+def test_gd_iteration_plain_matches_jax(K, s, momentum):
+    """Tolerance atol 1e-5, the JAX kernel tests' bound (test_pallas.py:51);
+    the same op sequence lands within a few ulps."""
+    d = _inputs()
+    taps = js.sobolev_filter_1d(s, 0.1)
+    alpha, w_reg = 0.05, 0.2
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    got = kernels.gd_iteration(
+        t["psi"], t["tnp"], t["vel"], t["tg"], t["live"], torch.from_numpy(taps),
+        alpha, w_reg, momentum, K,
+    )
+    want = _jax_step(d, taps, np.float32(alpha), np.float32(w_reg), momentum, K)
+    np.testing.assert_allclose(_np(got[0]), _np(want[0]), atol=1e-5)
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), atol=1e-5)
+    if momentum is None:
+        assert got[2] is None
+    else:
+        np.testing.assert_allclose(_np(got[2]), _np(want[2]), atol=1e-5)
+    np.testing.assert_allclose(float(got[3]), want[3], rtol=1e-4)
+
+
+@pytest.mark.parametrize("K", [None, 1, 2])
+def test_warp_plain_matches_jax(K):
+    """Trilinear at atol 1e-6 (same op order); floor channels bit for bit.
+    Displacements reach 3 voxels, past the K=1 and K=2 windows."""
+    d = _inputs(amp=3.0, seed=4)
+    vol = np.stack([d["tg"], np.round(np.abs(d["live"]) * 2).astype(np.float32)])
+    got = kernels.warp(torch.from_numpy(vol), torch.from_numpy(d["psi"]), K, (False, True))
+    jv, jp = jnp.asarray(vol), jnp.asarray(d["psi"])
+    if K is None:
+        tri, flo = jf.sample_trilinear(jv[0], jp), jf.sample_nearest_floor(jv[1], jp)
+    else:
+        tri = jf.sample_trilinear_window(jv[0], jp, K)
+        flo = jf.sample_nearest_floor_window(jv[1], jp, K)
+    np.testing.assert_allclose(_np(got[0]), _np(tri), atol=1e-6)
+    np.testing.assert_array_equal(_np(got[1]), _np(flo))
+
+
+@pytest.mark.parametrize("K,iters,warm", [(2, 3, True), (2, 3, False), (None, 48, False),
+                                          (None, 4, True)])
+def test_inverse_fixed_point_plain_matches_jax(K, iters, warm):
+    """The warm 3-step window inverse of the slice and the 48-step exact
+    inverse from identity. Sub-voxel displacements keep the fixed point a
+    contraction, so ulp differences do not grow past 1e-5."""
+    d = _inputs(amp=0.3, seed=6)
+    init = _inputs(amp=0.2, seed=7)["psi"] if warm else None
+    got = kernels.inverse_fixed_point(
+        torch.from_numpy(d["psi"]), iters, K, None if init is None else torch.from_numpy(init)
+    )
+    ji = None if init is None else jnp.asarray(init)
+    if K is None:
+        want = jf.estimate_inverse(jnp.asarray(d["psi"]), iters, init=ji)
+    else:
+        want = jf.estimate_inverse_window(jnp.asarray(d["psi"]), iters, K, init=ji)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("K", [None, 2])
+def test_warp_fuse_plain_bitwise_vs_jax(K):
+    """window_warp_fuse_pallas's contract: bit-identical to the floor warp +
+    fuse_volumes (pallas_kernels.py:623-626). Weights 0..3 and tsdf values
+    0 and -1 exercise every skip rule."""
+    rng = np.random.default_rng(9)
+    d = _inputs(amp=3.0, seed=8)
+    wg = rng.integers(0, 4, DIMS).astype(np.float32)
+    wn = rng.integers(0, 2, DIMS).astype(np.float32)
+    tnp = d["tnp"].copy()
+    tnp[rng.random(DIMS) < 0.1] = 0.0
+    tnp[rng.random(DIMS) < 0.1] = -1.0
+    got = kernels.warp_fuse(
+        torch.from_numpy(d["tg"]), torch.from_numpy(wg), torch.from_numpy(tnp),
+        torch.from_numpy(wn), torch.from_numpy(d["psi"]), 3.0, K,
+    )
+    jp = jnp.asarray(d["psi"])
+    wnp = (
+        jf.sample_nearest_floor(jnp.asarray(wn), jp)
+        if K is None
+        else jf.sample_nearest_floor_window(jnp.asarray(wn), jp, K)
+    )
+    want = j_fuse(jnp.asarray(d["tg"]), jnp.asarray(wg), jnp.asarray(tnp), wnp,
+                  jnp.float32(3.0))
+    np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+    np.testing.assert_array_equal(_np(got[1]), _np(want[1]))
+
+
+def test_cpu_tensors_launch_no_kernel():
+    kernels.reset_launch_counts()
+    d = {k: torch.from_numpy(v) for k, v in _inputs().items()}
+    taps = torch.from_numpy(js.sobolev_filter_1d(7, 0.1))
+    kernels.gd_iteration(d["psi"], d["tnp"], None, d["tg"], d["live"], taps, 0.1, 0.2,
+                         None, 2)
+    kernels.warp(d["tg"][None], d["psi"], 2, (False,))
+    kernels.inverse_fixed_point(d["psi"], 2, None)
+    kernels.warp_fuse(d["tg"], d["tg"], d["tnp"], d["live"], d["psi"], 64.0, 2)
+    assert kernels.launch_counts == {k: 0 for k in kernels.launch_counts}
+
+
+def test_wrappers_reject_other_devices():
+    meta = torch.empty((1,) + DIMS, device="meta")
+    psi = torch.empty((3,) + DIMS, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.warp(meta, psi, 2, (False,))
+    with pytest.raises(ValueError, match="1 entries for 2 channels"):
+        kernels.warp(torch.zeros((2,) + DIMS), torch.zeros((3,) + DIMS), 2, (False,))
