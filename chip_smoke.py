@@ -4,21 +4,37 @@
     python3 chip_smoke.py
 
 Phases, one line each; any failure exits non-zero before the result lines:
-  1. device    nvidia-smi name and power limit, torch / CUDA versions
-  2. build     the four kernels from sobfu_tpu_torch/csrc with nvcc
-  3. kernels   each kernel against its plain torch version on the same
-               CUDA tensors at the slice's shapes (128^3, 7 taps, K=2 and
-               the exact mode): atol 1e-5, bitwise for the floor warp and
-               the fuse; median times from CUDA events after a warm-up
-  4. goldens   the solver on the card against tests/golden/solver_16*.npz
-               (atol 1e-5, the JAX package's frozen CPU results)
-  5. main path params/params_umbrella.ini + WARP_WINDOW=2: 4 frames of
-               640x480 depth (a translating sphere, rendered in memory)
-               through SobFusion(device="cuda") with MAX_ITER=2048, then the
-               phi_global mesh; every kernel must have launched
-  6. shipped   params_umbrella.ini unchanged (exact mode): 2 frames
-The last three lines are the kernel report (JSON), the nvidia-smi line and
-{"ok": true, "device": {...}}.
+  1. device     nvidia-smi name and power limit, torch / CUDA versions
+  2. build      the five kernels from sobfu_tpu_torch/csrc, one nvcc per
+                source, all started together
+  3. kernels    each kernel against its plain torch version on the same
+                CUDA tensors at the path's shapes (A-D at 128^3, 7 taps,
+                K=2 and the exact mode; A's stall energy, rtol 1e-5; E at
+                the coarse level's 64^3, K=1, momentum 0.95, 16 iterations,
+                with and without the verbose rows): atol 1e-5, bitwise for
+                the floor warp and the fuse, and E bit for bit against 16
+                chained A launches; median times from CUDA events
+  4. goldens    the solver on the card against tests/golden/solver_16*.npz
+                (atol 1e-5, the JAX package's frozen CPU results), the
+                pyramid golden included
+  5. main       params/params_umbrella.ini + WARP_WINDOW=2: 4 frames of
+                640x480 depth (a translating sphere, rendered in memory)
+                through SobFusion(device="cuda") with MAX_ITER=2048, then
+                the phi_global mesh; kernels A-D must have launched
+  6. shipped    params_umbrella.ini unchanged (exact mode): 2 frames
+  7. pyramid    the slice: umbrella + the production keys (WARP_WINDOW=2,
+                MOMENTUM=0.95, ALPHA=0.05, PYRAMID_LEVELS=2, MAX_ITER=1024,
+                MAX_UPDATE_NORM=4e-3, STALL_WINDOW=16, STALL_REL=1e-2; the
+                multigrid inverse with the half-res carry) at 128^3, 4
+                frames; per frame the wall time, coarse and fine iterations,
+                why the fine level stopped, and each level's solve timed on
+                its own (ms per iteration); all five kernels must have
+                launched (E on the 64^3 coarse level), psi_inv is carried
+                half-res and the psi_inv mesh getter materialises it full-res
+  8. pyramid256 the same keys at 256^3 with PYRAMID_LEVELS=3: 2 frames
+The launch counts of each path are zeroed just before it and read just
+after. The last three lines are the kernel report (JSON, launches from the
+pyramid phase), the nvidia-smi line and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -55,13 +71,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def render_prims_depth():
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_scene", os.path.join(ROOT, "tools", "make_synthetic_scene.py")
-    )
+def tool(name: str):
+    """tools/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.render_prims_depth
+    return mod
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -188,9 +203,83 @@ def check_kernels(torch, kernels, fields, solver):
     ms = cuda_ms(lambda: kernels.warp_fuse(*args), 50)
     plain = cuda_ms(lambda: kernels.warp_fuse_plain(*args), 10)
     results["warp_fuse"] = (max(errs), ms, plain)
+    # A's stall energy (the fine level's check iterations)
+    args = (psi_w, tnp, vel, tg, live, taps, alpha, w_reg, 0.95, 2)
+    e_got = kernels.gd_iteration(*args, with_energy=True)[4]
+    e_ref = kernels.gd_iteration_plain(*args, with_energy=True)[4]
+    e_rel = abs(float(e_got) - float(e_ref)) / abs(float(e_ref))
+    same = bitwise(e_got, kernels.gd_iteration(*args, with_energy=True)[4])
+    log("kernels", f"gd_iteration energy: rel d={e_rel:.3e} same bits on a rerun={same}")
+    check(e_rel <= 1e-5 and same, "gd_iteration's energy disagrees with its plain version")
+    ms_e = cuda_ms(lambda: kernels.gd_iteration(*args, with_energy=True), 50)
+    log("kernels", f"gd_iteration with energy: {ms_e:.4f} ms (median, 128^3, K=2)")
+
+    results["gd_multi"] = check_gd_multi(torch, kernels, fields, solver)
     for name, (e, ms, plain) in results.items():
-        log("kernels", f"{name}: {ms:.4f} ms kernel, {plain:.4f} ms plain (median, 128^3, K=2)")
+        where = "64^3, K=1, 16 iterations" if name == "gd_multi" else "128^3, K=2"
+        log("kernels", f"{name}: {ms:.4f} ms kernel, {plain:.4f} ms plain (median, {where})")
     return results
+
+
+def check_gd_multi(torch, kernels, fields, solver):
+    """Kernel E at the coarse level's shapes: 64^3, K=1, momentum 0.95,
+    n_inner=16. Against its plain version (atol 1e-5 on the state, rtol 1e-5
+    on the rows) and bit for bit against 16 chained A launches. Returns
+    (max_abs_err, ms, plain_ms); logs 16 chained A launches' time too."""
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+    n = 64
+    dims, vs = (n, n, n), 1.0 / n
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    tg, _ = init_sphere(dims, (vs,) * 3, (0.5, 0.5, 0.5), 0.2, 8 * vs, 3 * vs, device=dev)
+    live, _ = init_sphere(dims, (vs,) * 3, (0.49, 0.5, 0.5), 0.2, 8 * vs, 3 * vs, device=dev)
+    psi = fields.identity_field(dims, device=dev) + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+    tnp = live + t(rng.normal(0.0, 0.05, dims))
+    vel = t(rng.normal(0.0, 0.1, (3,) + dims))
+    taps = torch.as_tensor(solver.sobolev_filter_1d(TAPS, LAMBDA), device=dev)
+    args = (psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1, 16)
+    errs = []
+    for verbose in (False, True):
+        got = kernels.gd_multi(*args, with_energy=True, with_verbose=verbose)
+        ref = kernels.gd_multi_plain(*args, with_energy=True, with_verbose=verbose)
+        e = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
+        rel = max(
+            float(torch.max(torch.abs(g - r) / torch.abs(r).clamp_min(1e-30)))
+            for g, r in zip(got[3:], ref[3:]) if r is not None
+        )
+        log("kernels", f"gd_multi verbose={verbose}: max|d| state={e:.3e} "
+            f"max rel d rows={rel:.3e}")
+        check(e <= 1e-5 and rel <= 1e-5, "gd_multi disagrees with its plain version")
+        errs.append(e)
+
+    def chained():
+        p, q, v = psi, tnp, vel
+        rows = []
+        for _ in range(16):
+            p, q, v, mx, en = kernels.gd_iteration(p, q, v, tg, live, taps, 0.05, 0.2, 0.95, 1,
+                                                   with_energy=True)
+            rows.append((mx, en))
+        return p, q, v, rows
+
+    got = kernels.gd_multi(*args, with_energy=True)
+    p, q, v, rows = chained()
+    bit = bitwise(got.psi, p) and bitwise(got.tnp, q) and bitwise(got.vel, v) and all(
+        bitwise(got.mx_sq[i], mx) and bitwise(got.e_data[i], en)
+        for i, (mx, en) in enumerate(rows)
+    )
+    log("kernels", f"gd_multi vs 16 chained gd_iteration: bitwise={bit}")
+    check(bit, "gd_multi is not bit-identical to 16 chained gd_iteration launches")
+    ms = cuda_ms(lambda: kernels.gd_multi(*args), 20)
+    ms_a = cuda_ms(chained, 20)
+    plain = cuda_ms(lambda: kernels.gd_multi_plain(*args), 5)
+    log("kernels", f"gd_multi 16 iterations at 64^3: {ms:.4f} ms one launch, "
+        f"{ms_a:.4f} ms 16 chained gd_iteration (with energy), {plain:.4f} ms plain")
+    return max(errs), ms, plain
 
 
 def check_goldens(torch, fields, solver):
@@ -205,25 +294,31 @@ def check_goldens(torch, fields, solver):
                          device=dev)
     taps = solver.sobolev_filter_1d(7, 0.1)
     psi = fields.identity_field(dims, device=dev)
-    for name, K in (("solver_16.npz", None), ("solver_16_window.npz", 2)):
+    for name, K, levels in (("solver_16.npz", None, 1), ("solver_16_window.npz", 2, 1),
+                            ("solver_16_pyramid.npz", 2, 2)):
         g = np.load(os.path.join(ROOT, "tests", "golden", name))
-        res = solver.estimate_psi(psi, tg, wg, tn, wn, taps, 0.1, 0.3, 32, -1.0,
-                                  inverse_iters=8, warp_window=K)
+        res = solver.estimate_psi_pyramid(psi, tg, wg, tn, wn, taps, 0.1, 0.3, 32, -1.0,
+                                          levels=levels, inverse_iters=8, warp_window=K)
         e = max(
             float(np.abs(res.psi.cpu().numpy() - g["psi"]).max()),
             float(np.abs(res.tsdf_n_psi.cpu().numpy() - g["tnp"]).max()),
             float(np.abs(res.psi_inv.cpu().numpy() - g["psi_inv"]).max()),
         )
         log("goldens", f"{name}: max|d|={e:.3e} iters={res.iters}")
-        check(e <= 1e-5 and res.iters == 32, f"{name}: port on the card disagrees")
+        check(e <= 1e-5 and res.iters == 32 * levels, f"{name}: port on the card disagrees")
 
 
-def run_frames(torch, kernels, params, n_frames, phase):
-    """Drive SobFusion on the card over n_frames of a translating sphere."""
-    from sobfu_tpu_torch import mc
+def run_frames(torch, kernels, params, n_frames, phase, expect):
+    """Drive SobFusion on the card over n_frames of a translating sphere in
+    the no-log loop; every kernel named in expect must launch. Each level's
+    solve is timed on its own (a StageClock around solver.estimate_psi; the
+    fine level's time includes its inverse). Returns (launch counts of this
+    path, the SobFusion)."""
+    from sobfu_tpu_torch import mc, solver
     from sobfu_tpu_torch.pipeline import SobFusion
 
-    render = render_prims_depth()
+    render = tool("make_synthetic_scene").render_prims_depth
+    StageClock = tool("profile_torch_frame").StageClock
     intr = params.intr
     H, W = params.rows, params.cols
     frames = [
@@ -235,20 +330,33 @@ def run_frames(torch, kernels, params, n_frames, phase):
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     for i, depth in enumerate(frames):
-        t0 = time.perf_counter()
-        fusion(depth)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with StageClock((solver, "estimate_psi")) as clock:
+            t0 = time.perf_counter()
+            fusion(depth)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         res = fusion.last_solve if i >= max(1, params.start_frame) else None
         if res is None:
             log(phase, f"frame {i}: {dt:.4f} s (integrate only)")
+            continue
+        fine = res.iters - res.coarse_iters
+        if res.max_norm <= params.max_update_norm:
+            why = "converged"
+        elif fusion.solver.stall_window and fine < params.max_iter:
+            why = "data-energy stall"
         else:
-            log(
-                phase,
-                f"frame {i}: {dt:.4f} s, iters {res.iters}, "
-                f"{1000.0 * dt / max(res.iters, 1):.4f} ms/iter (frame time / iters), "
-                f"final max-norm {res.max_norm:.6e}",
-            )
+            why = "MAX_ITER"
+        levels = "; ".join(
+            f"{'x'.join(map(str, shape[1:]))} level {out.iters} iters in {1e3 * sec:.4f} ms "
+            f"({1e3 * sec / max(out.iters, 1):.4f} ms each)"
+            for _, shape, out, sec in clock.calls
+        )
+        log(
+            phase,
+            f"frame {i}: {dt:.4f} s, iters {res.iters} (coarse {res.coarse_iters}, "
+            f"fine {fine}), fine level stopped on {why}, final max-norm "
+            f"{res.max_norm:.6e}; {levels} (the last is the fine level, its inverse included)",
+        )
     counts = dict(kernels.launch_counts)
     mesh = mc.extract_mesh(
         fusion.phi_global.tsdf, fusion.phi_global.weight,
@@ -256,14 +364,38 @@ def run_frames(torch, kernels, params, n_frames, phase):
     )
     torch.cuda.synchronize()
     log(phase, f"launch counts {counts}; phi_global mesh {mesh.n_triangles} triangles")
-    for name, n in counts.items():
-        check(n > 0, f"{phase}: kernel {name} was never launched")
+    for name in expect:
+        check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
     state = (fusion.phi_global.tsdf, fusion.phi_global.weight, fusion.psi.data,
              fusion.psi_inv.data)
     check(all(bool(torch.isfinite(s).all()) for s in state), f"{phase}: non-finite state")
     dims = (3,) + fusion.phi_global.dims_zyx
     check(tuple(fusion.psi.data.shape) == dims, f"{phase}: psi shape")
     check(mesh.n_triangles > 0 and np.isfinite(mesh.vertices).all(), f"{phase}: empty mesh")
+    return counts, fusion
+
+
+def run_pyramid(torch, kernels, params, n_frames, phase, expect):
+    """A pyramid path: the derived options, the frames, the half-res carry
+    and its full-resolution materialisation."""
+    counts, fusion = run_frames(torch, kernels, params, n_frames, phase, expect)
+    s = fusion.solver
+    log(phase, f"solver: levels {s.pyramid_levels}, fused {s.fused}, inv_multigrid "
+        f"{s.inv_multigrid}, inv_coarse {s.inv_coarse}, inverse_iters {s.inverse_iters}")
+    check(s.pyramid_levels == params.pyramid_levels and s.fused and s.inv_multigrid
+          and s.inv_coarse, f"{phase}: the solver did not derive the production options")
+    dims = fusion.phi_global.dims_zyx
+    half = (3,) + tuple(d // 2 for d in dims)
+    check(tuple(fusion.psi_inv.data.shape) == half, f"{phase}: psi_inv is not carried half-res")
+    full = fusion.full_res_inverse()
+    check(tuple(full.shape) == (3,) + tuple(dims) and bool(torch.isfinite(full).all()),
+          f"{phase}: the full-resolution inverse")
+    mesh = fusion.get_phi_global_psi_inv_mesh()
+    check(tuple(fusion.phi_global_psi_inv.tsdf.shape) == tuple(dims) and mesh.n_triangles > 0,
+          f"{phase}: the psi_inv mesh getter")
+    check(tuple(fusion.psi_inv.data.shape) == half, f"{phase}: the getter changed the carry")
+    log(phase, f"psi_inv carried at {half[1:]}, materialised at {tuple(full.shape[1:])}; "
+        f"phi_global o psi_inv mesh {mesh.n_triangles} triangles")
     return counts
 
 
@@ -294,12 +426,20 @@ def main() -> int:
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
 
-    params = load_params(os.path.join(ROOT, "params", "params_umbrella.ini"))
+    path_kernels = ("gd_iteration", "warp", "inverse_fixed_point", "warp_fuse")
+    ini = os.path.join(ROOT, "params", "params_umbrella.ini")
+    params = load_params(ini)
     params.warp_window = 2
-    counts = run_frames(torch, kernels, params, 4, "main")
+    run_frames(torch, kernels, params, 4, "main", path_kernels)
 
-    shipped = load_params(os.path.join(ROOT, "params", "params_umbrella.ini"))
-    run_frames(torch, kernels, shipped, 2, "shipped")
+    run_frames(torch, kernels, load_params(ini), 2, "shipped", path_kernels)
+
+    all_kernels = tuple(kernels.launch_counts)
+    production_params = tool("profile_torch_frame").production_params
+    counts = run_pyramid(torch, kernels, production_params(ini, DIM, 2), 4, "pyramid",
+                         all_kernels)
+    run_pyramid(torch, kernels, production_params(ini, 2 * DIM, 3), 2, "pyramid256",
+                all_kernels)
     torch.cuda.synchronize()
 
     report = {"kernels": [
@@ -313,7 +453,7 @@ def main() -> int:
             "ms": results[name][1],
             "plain_ms": results[name][2],
         }
-        for name in kernels.launch_counts
+        for name in all_kernels
     ]}
     print(json.dumps(report))
     print(smi)

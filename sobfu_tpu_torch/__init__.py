@@ -9,7 +9,8 @@ counterpart is easy to find:
 - TSDF volumes                                  -> :mod:`sobfu_tpu_torch.tsdf`
 - deformation fields, samplers, stencils        -> :mod:`sobfu_tpu_torch.fields`
 - the Sobolev gradient-descent solver           -> :mod:`sobfu_tpu_torch.solver`
-- the four CUDA kernels of the main path        -> :mod:`sobfu_tpu_torch.ops.kernels`
+- the pyramid's resamples, multigrid inverse    -> :mod:`sobfu_tpu_torch.pyramid`
+- the five CUDA kernels of the main path        -> :mod:`sobfu_tpu_torch.ops.kernels`
 - marching cubes                                -> :mod:`sobfu_tpu_torch.mc`
 - the frame loop                                -> :mod:`sobfu_tpu_torch.pipeline`
 

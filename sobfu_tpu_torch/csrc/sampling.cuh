@@ -1,6 +1,6 @@
 // Shared device helpers of the sobfu_tpu_torch kernels: voxel indexing, the
-// exact and K-clamped trilinear samplers, the floor-corner rule and a
-// block-wide max.
+// exact and K-clamped trilinear samplers, the floor-corner rule, and the
+// block-wide max and fixed-order sums.
 //
 // Layouts follow the JAX package: volumes f32[Z,Y,X] with the flat index
 // (z*Y + y)*X + x (the reference's get_global_idx multiplies by dim_y*dim_y,
@@ -118,7 +118,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 
 // Block-wide max of a non-negative value, folded into *out with atomicMax
 // on its bits (the order of non-negative floats is that of their bits).
-// Every thread of the block must call it.
+// Every thread of the block must call it; it may be called again at once.
 __device__ __forceinline__ void block_max_atomic(float v, unsigned int* out) {
   __shared__ float warp_max[kBlock / 32];
   for (int off = 16; off > 0; off >>= 1)
@@ -132,6 +132,34 @@ __device__ __forceinline__ void block_max_atomic(float v, unsigned int* out) {
       v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
     if (lane == 0) atomicMax(out, __float_as_uint(v));
   }
+  __syncthreads();  // warp_max is free for the next call
+}
+
+// Block-wide sum in a fixed order: a shuffle tree inside each warp, then the
+// same tree over the warp sums. The result is valid in thread 0. Every
+// thread of the block must call it; it may be called again at once.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sum[kBlock / 32];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) warp_sum[wid] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (wid == 0) {
+    s = lane < kBlock / 32 ? warp_sum[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  }
+  __syncthreads();  // warp_sum is free for the next call
+  return s;
+}
+
+// Sum of n per-tile partials by ONE block in a fixed order: thread t adds
+// partials t, t + kBlock, t + 2 kBlock, ... in turn, then block_sum. No
+// float atomics, so the result is the same on every run. Valid in thread 0.
+__device__ __forceinline__ float sum_partials(const float* partials, long long n) {
+  float s = 0.0f;
+  for (long long k = threadIdx.x; k < n; k += kBlock) s += partials[k];
+  return block_sum(s);
 }
 
 }  // namespace sobfu

@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels of ``sobfu_tpu_torch/csrc``.
 
 The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``:
+with a plain C interface, loaded with ``ctypes``. Each source compiles in its
+own ``nvcc`` process, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \\
-         -shared -Xcompiler -fPIC -o _build/libsobfu_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<hash>/<name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libsobfu_kernels_<hash>.so _build/<hash>/*.o
 
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded. ``--fmad=false``
@@ -20,17 +23,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,7 +43,12 @@ SIGNATURES = {
     "sobfu_warp_fuse": (_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P),
     "sobfu_gd_iteration": (
         _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
+    "sobfu_gd_multi": (
+        _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _P,
     ),
 }
 
@@ -71,28 +77,39 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build(verbose: bool = False) -> tuple:
     """Compile the library unless it exists; returns (path, compiler log).
 
     verbose adds ``-Xptxas -v`` (registers, shared memory and spills per
     kernel) to a build that actually runs.
     """
-    lib_path = BUILD_DIR / f"libsobfu_kernels_{source_hash()}.so"
+    digest = source_hash()
+    lib_path = BUILD_DIR / f"libsobfu_kernels_{digest}.so"
     if lib_path.exists():
         return lib_path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    srcs = sorted(SRC_DIR.glob("*.cu"))
+    objs = [obj_dir / f"{src.stem}.o" for src in srcs]
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        logs = list(pool.map(
+            lambda so: _run([nvcc, *NVCC_FLAGS, *extra, "-c", str(so[0]), "-o", str(so[1])]),
+            zip(srcs, objs),
+        ))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]))
     os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    return lib_path, "".join(logs)
 
 
 def library() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of the main path and their plain torch versions.
+"""The five CUDA kernels of the main path and their plain torch versions.
 
 ==================  ==========================================  =============
 wrapper             replaces (sobfu_tpu/ops/pallas_kernels.py)  source
@@ -10,6 +10,7 @@ warp (B)            window_warp_pallas :478,                    csrc/warp.cu
 inverse_fixed_point estimate_inverse_window_pallas_multi :3061  csrc/inverse.cu
 (C)                 (+ estimate_inverse_window_pallas :1883)
 warp_fuse (D)       window_warp_fuse_pallas :607                csrc/warp_fuse.cu
+gd_multi (E)        fused_gd_multi_fold :2805                   csrc/gd_multi.cu
 ==================  ==========================================  =============
 
 Each wrapper takes the JAX package's layouts and a window half-width ``K``
@@ -22,14 +23,16 @@ kernel launches per wrapper and is touched nowhere else.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from sobfu_tpu_torch import fields
 from sobfu_tpu_torch.tsdf import fuse_volumes
 
-launch_counts = {"gd_iteration": 0, "warp": 0, "inverse_fixed_point": 0, "warp_fuse": 0}
+launch_counts = {
+    "gd_iteration": 0, "warp": 0, "inverse_fixed_point": 0, "warp_fuse": 0, "gd_multi": 0,
+}
 
 # what each kernel replaces and where its source lives (chip_smoke.py reports it)
 KERNELS = {
@@ -46,7 +49,14 @@ KERNELS = {
         "sobfu_tpu_torch/csrc/warp_fuse.cu",
         "sobfu_tpu/ops/pallas_kernels.py:607",
     ),
+    "gd_multi": (
+        "sobfu_tpu_torch/csrc/gd_multi.cu",
+        "sobfu_tpu/ops/pallas_kernels.py:2805",
+    ),
 }
+
+# voxels per tile of the kernels' reductions (csrc/sampling.cuh kBlock)
+TILE = 256
 
 
 def reset_launch_counts() -> None:
@@ -218,10 +228,17 @@ def warp_fuse(
 # ---------------------------------------------------------------------------
 
 
-def gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K):
+def _n_tiles(dims) -> int:
+    Z, Y, X = dims
+    return (Z * Y * X + TILE - 1) // TILE
+
+
+def gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                       with_energy: bool = False):
     """solver.estimate_psi's XLA step: returns (psi', tnp', vel', max |upd|^2)
-    with vel' None when momentum is None."""
-    from sobfu_tpu_torch.solver import sobolev_smooth
+    with vel' None when momentum is None, and with_energy appends
+    solver.data_energy(tg, tnp')."""
+    from sobfu_tpu_torch.solver import data_energy, sobolev_smooth
 
     grad = fields.tsdf_gradient(tnp)
     lap = fields.neg_laplacian(psi)
@@ -236,32 +253,39 @@ def gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K)
     psi_new = psi - update
     tnp_new = warp_plain(live[None], psi_new, K, (False,))[0]
     max_sq = torch.max(torch.sum(update * update, dim=0))
+    if with_energy:
+        return psi_new, tnp_new, vel_new, max_sq, data_energy(tg, tnp_new)
     return psi_new, tnp_new, vel_new, max_sq
 
 
 def gd_iteration(
     psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
-    momentum: Optional[float], K: Optional[int],
+    momentum: Optional[float], K: Optional[int], with_energy: bool = False,
 ):
-    """Kernel A: one gradient-descent iteration (two launches, counted once).
+    """Kernel A: one gradient-descent iteration (two launches, three with the
+    energy; counted once).
 
     psi f32[3,Z,Y,X]; tnp, tg, live f32[Z,Y,X]; vel f32[3,Z,Y,X] when
     momentum is set, else ignored; taps f32[s] (s odd, <= 11). Returns
-    (psi', tnp', vel' or None, max squared update norm as a 0-dim tensor).
+    (psi', tnp', vel' or None, max squared update norm as a 0-dim tensor);
+    with_energy appends the data energy 0.5 * sum (tg - tnp')^2 (0-dim),
+    reduced in a fixed order (the same bits on every run).
     """
     if _on_cpu(psi):
-        return gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K)
+        return gd_iteration_plain(
+            psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, with_energy
+        )
     Z, Y, X = psi.shape[1:]
     dims = (Z, Y, X)
     dev = psi.device
-    s = taps.shape[0]
-    if s % 2 == 0 or s > 11:
-        raise ValueError(f"taps must be odd and at most 11 long, got {s}")
+    s = _check_taps(taps, dev)
     dU = torch.empty_like(psi)
     psi_out = torch.empty_like(psi)
     tnp_out = torch.empty_like(tnp)
     vel_out = torch.empty_like(psi) if momentum is not None else None
     max_sq = torch.empty((), dtype=torch.float32, device=dev)
+    parts = torch.empty(_n_tiles(dims), dtype=torch.float32, device=dev) if with_energy else None
+    e = torch.empty((), dtype=torch.float32, device=dev) if with_energy else None
     _launch(
         "gd_iteration", "sobfu_gd_iteration", dev,
         _check("psi", psi, (3,) + dims, dev),
@@ -269,10 +293,126 @@ def gd_iteration(
         None if momentum is None else _check("vel", vel, (3,) + dims, dev),
         _check("tg", tg, dims, dev),
         _check("live", live, dims, dev),
-        _check("taps", taps, (s,), dev), s,
+        taps.data_ptr(), s,
         float(alpha), float(w_reg), 0.0 if momentum is None else float(momentum),
         dU.data_ptr(), psi_out.data_ptr(), tnp_out.data_ptr(),
         None if vel_out is None else vel_out.data_ptr(),
-        max_sq.data_ptr(), Z, Y, X, _K(K),
+        max_sq.data_ptr(), _ptr(parts), _ptr(e), Z, Y, X, _K(K),
     )
+    if with_energy:
+        return psi_out, tnp_out, vel_out, max_sq, e
     return psi_out, tnp_out, vel_out, max_sq
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check_taps(taps, dev) -> int:
+    s = taps.shape[0]
+    if s % 2 == 0 or s > 11:
+        raise ValueError(f"taps must be odd and at most 11 long, got {s}")
+    _check("taps", taps, (s,), dev)
+    return s
+
+
+# ---------------------------------------------------------------------------
+# E: n gradient-descent iterations in one launch
+# ---------------------------------------------------------------------------
+
+
+class MultiOut(NamedTuple):
+    """Kernel E's outputs; the per-iteration rows are f32[n_inner]."""
+
+    psi: torch.Tensor
+    tnp: torch.Tensor
+    vel: Optional[torch.Tensor]
+    mx_sq: torch.Tensor            # max squared update norm of each iteration
+    e_data: Optional[torch.Tensor]  # 0.5 sum (tg - tnp')^2 after each (with_energy)
+    e_pre: Optional[torch.Tensor]   # data energy before each (with_verbose)
+    e_reg: Optional[torch.Tensor]   # regulariser energy before each (with_verbose)
+
+
+def gd_multi_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                   n_inner: int, with_energy: bool = False,
+                   with_verbose: bool = False) -> MultiOut:
+    """n_inner chained :func:`gd_iteration_plain` steps, with the row outputs
+    of fused_gd_multi_fold (every mx_sq row is filled)."""
+    from sobfu_tpu_torch.solver import data_energy, reg_energy_sobolev
+
+    mx, e_data, e_pre, e_reg = [], [], [], []
+    for _ in range(int(n_inner)):
+        if with_verbose:
+            e_pre.append(data_energy(tg, tnp))
+            e_reg.append(reg_energy_sobolev(psi))
+        out = gd_iteration_plain(
+            psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, with_energy
+        )
+        psi, tnp, vel = out[:3]
+        mx.append(out[3])
+        e_data.append(out[4] if with_energy else None)
+    stack = torch.stack
+    return MultiOut(
+        psi, tnp, vel, stack(mx),
+        stack(e_data) if with_energy else None,
+        stack(e_pre) if with_verbose else None,
+        stack(e_reg) if with_verbose else None,
+    )
+
+
+def gd_multi(
+    psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
+    momentum: Optional[float], K: Optional[int], n_inner: int,
+    with_energy: bool = False, with_verbose: bool = False,
+) -> MultiOut:
+    """Kernel E: n_inner iterations of kernel A in one cooperative launch.
+
+    Operands as :func:`gd_iteration`. Equal bit for bit to n_inner chained
+    gd_iteration calls: state, velocity, every mx_sq row and every e_data
+    row. with_verbose adds the pre-update data and regulariser energies of
+    each iteration (the rows record_energy keeps).
+    """
+    n_inner = int(n_inner)
+    if n_inner < 1:
+        raise ValueError(f"n_inner must be >= 1, got {n_inner}")
+    if _on_cpu(psi):
+        return gd_multi_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                              n_inner, with_energy, with_verbose)
+    Z, Y, X = psi.shape[1:]
+    dims = (Z, Y, X)
+    dev = psi.device
+    s = _check_taps(taps, dev)
+    has_vel = momentum is not None
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_tiles = _n_tiles(dims)
+
+    def rows(on):
+        return torch.empty(n_inner, **f32) if on else None
+
+    def tiles(on):
+        return torch.empty(n_tiles, **f32) if on else None
+
+    psi_out, psi_tmp = torch.empty_like(psi), torch.empty_like(psi)
+    tnp_out, tnp_tmp = torch.empty_like(tnp), torch.empty_like(tnp)
+    vel_out = torch.empty_like(psi) if has_vel else None
+    vel_tmp = torch.empty_like(psi) if has_vel else None
+    dU = torch.empty_like(psi)
+    mx_sq = rows(True)
+    e_data, e_pre, e_reg = rows(with_energy), rows(with_verbose), rows(with_verbose)
+    part_data, part_pre, part_reg = tiles(with_energy), tiles(with_verbose), tiles(with_verbose)
+    _launch(
+        "gd_multi", "sobfu_gd_multi", dev,
+        _check("psi", psi, (3,) + dims, dev),
+        _check("tnp", tnp, dims, dev),
+        _check("vel", vel, (3,) + dims, dev) if has_vel else None,
+        _check("tg", tg, dims, dev),
+        _check("live", live, dims, dev),
+        taps.data_ptr(), s,
+        float(alpha), float(w_reg), float(momentum) if has_vel else 0.0,
+        psi_out.data_ptr(), tnp_out.data_ptr(), _ptr(vel_out),
+        psi_tmp.data_ptr(), tnp_tmp.data_ptr(), _ptr(vel_tmp), dU.data_ptr(),
+        mx_sq.data_ptr(), _ptr(e_data), _ptr(e_pre), _ptr(e_reg),
+        _ptr(part_data), _ptr(part_pre), _ptr(part_reg),
+        n_inner, Z, Y, X, _K(K),
+    )
+    return MultiOut(psi_out, tnp_out, vel_out, mx_sq, e_data, e_pre, e_reg)

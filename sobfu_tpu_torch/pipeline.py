@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sobfu_tpu_torch import core, fields
+from sobfu_tpu_torch import core, fields, pyramid
 from sobfu_tpu_torch import solver as solver_mod
 from sobfu_tpu_torch.config import Params
 from sobfu_tpu_torch.fields import DeformationField
@@ -49,11 +49,13 @@ def fused_frame_step(
     skip_weight_warp: bool = False,
 ):
     """One complete non-rigid frame (``sobfu_tpu.pipeline.fused_frame_step``,
-    additive): preprocess -> integrate phi_n -> solve -> fuse.
+    additive): preprocess -> integrate phi_n -> solve (the pyramid when
+    PYRAMID_LEVELS > 1) -> fuse.
 
     skip_weight_warp: the solve returns weight_n unwarped and the fuse runs
     as the warp_fuse kernel, which floor-warps it at psi itself (the no-log
-    loop). The port applies the exact rule when no window is set.
+    loop). The port applies the exact rule when no window is set. With
+    skip_inv_warps, Solver.inv_coarse carries psi_inv at half resolution.
 
     Returns (tsdf_g', weight_g', tsdf_n, weight_n, SolveResult).
     """
@@ -66,12 +68,11 @@ def fused_frame_step(
         axis_aligned=bool(np.allclose(vol2cam[:3, :3], np.eye(3), atol=1e-6)),
     )
     tg, wg = phi_global.tsdf, phi_global.weight
-    res = solver_mod.estimate_psi(
-        psi, tg, wg, tn, wn, solver.taps, p.alpha, p.w_reg, p.max_iter,
-        p.max_update_norm, psi_inv0,
+    res = solver.solve(
+        psi, tg, wg, tn, wn, psi_inv0,
         skip_inv_warps=skip_inv_warps,
         skip_weight_warp=skip_weight_warp,
-        **solver.solve_kwargs(),
+        inv_coarse=solver.inv_coarse and skip_inv_warps,
     )
     K = solver.warp_window
     gate = float(getattr(p, "new_surface_gate", 0.0) or 0.0)
@@ -124,6 +125,20 @@ class SobFusion:
         self.solver: Optional[solver_mod.Solver] = None
         self.last_solve = None
 
+    def _coarse_inv_carry(self) -> bool:
+        """True when the frame loop carries psi_inv at HALF resolution: the
+        no-log loop with Solver.inv_coarse on a pyramid over even dims
+        (``sobfu_tpu.pipeline.SobFusion._coarse_inv_carry``)."""
+        s, p = self.solver, self.params
+        return bool(
+            s.inv_coarse
+            and s.inverse_warm
+            and not self.need_inv_warps
+            and p.verbosity == 0
+            and s.pyramid_levels > 1
+            and all(d % 2 == 0 for d in p.volume_dims)
+        )
+
     def _depth_tensor(self, depth) -> torch.Tensor:
         d = torch.as_tensor(np.asarray(depth).astype(np.int32)) if not isinstance(
             depth, torch.Tensor
@@ -146,7 +161,13 @@ class SobFusion:
             self.phi_n = TsdfVolume(p, self.device)
             self.phi_n_psi = TsdfVolume(p, self.device)
             self.psi = DeformationField(p.volume_dims, device=self.device)
-            self.psi_inv = DeformationField(p.volume_dims, device=self.device)
+            # psi_inv at its carry resolution: with the half-res inverse
+            # carry the solve returns it half-res from frame 1 on
+            # (sobfu_tpu/pipeline.py:342-352)
+            inv_dims = p.volume_dims
+            if self._coarse_inv_carry():
+                inv_dims = tuple(d // 2 for d in p.volume_dims)
+            self.psi_inv = DeformationField(inv_dims, device=self.device)
             self.frame_counter += 1
             return True
 
@@ -215,12 +236,27 @@ class SobFusion:
     def get_phi_global_mesh(self):
         return self._get_mesh(self.phi_global)
 
+    def full_res_inverse(self) -> torch.Tensor:
+        """psi_inv at full resolution. A half-res carry (Solver.inv_coarse)
+        is upsampled and anchored with one full-res fixed-point step against
+        the current psi, the step estimate_inverse_multigrid's fine_iters=1
+        runs (sobfu_tpu/pipeline.py:543-557); the carry itself stays
+        half-res for the next frame's warm start."""
+        inv = self.psi_inv.data
+        dims = self.phi_global.dims_zyx
+        if tuple(inv.shape[1:]) == tuple(dims):
+            return inv
+        q0 = pyramid.upsample_inverse(inv, dims)
+        return kernels.inverse_fixed_point(
+            self.psi.data, 1, self.solver.warp_window or 2, q0.contiguous()
+        )
+
     def _refresh_inv_warps(self):
         """Recompute phi_global o psi_inv on demand (skipped in the frame
         step when no per-frame consumer exists — see need_inv_warps)."""
         both = kernels.warp(
             torch.stack([self.phi_global.tsdf, self.phi_global.weight]),
-            self.psi_inv.data, self.solver.warp_window, (False, True),
+            self.full_res_inverse(), self.solver.warp_window, (False, True),
         )
         self.phi_global_psi_inv.tsdf, self.phi_global_psi_inv.weight = both[0], both[1]
         self._inv_warps_stale = False

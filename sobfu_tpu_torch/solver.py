@@ -1,4 +1,4 @@
-"""Sobolev-gradient warp-field solver (additive, reference path).
+"""Sobolev-gradient warp-field solver (additive mode, with the pyramid).
 
 PyTorch counterpart of ``sobfu_tpu.solver``. Per iteration
 (reference solver.cu:114-193):
@@ -13,8 +13,10 @@ Afterwards: psi_inv by the fixed point, and the tail warps.
 On a CUDA device every warp, iteration and inverse runs through the kernels
 of :mod:`sobfu_tpu_torch.ops.kernels`; on the CPU through their plain torch
 versions. torch has no on-device while_loop: the stop test reads the max
-norm on the host after every iteration, which keeps the reference's exact
-stopping semantics (the same ``iters`` as JAX).
+norm on the host after every iteration (every chunk of kernel E), which
+keeps JAX's stopping semantics (the same ``iters``). The coarse-to-fine
+pyramid (:func:`estimate_psi_pyramid`) warm-starts the fine solve from
+2x-downsampled levels (helpers in :mod:`sobfu_tpu_torch.pyramid`).
 """
 
 from __future__ import annotations
@@ -131,7 +133,6 @@ class SolverState(NamedTuple):
     tsdf_n_psi: torch.Tensor   # f32[Z,Y,X]   warped live tsdf
     iter: int                  # iterations completed
     max_norm: float            # last max-update norm
-    energy: torch.Tensor       # f32[cap, 3]  (e_data, e_reg, max_norm) history
     vel: Optional[torch.Tensor]  # heavy-ball velocity (None without momentum)
     e_ref: float = float("inf")
     stalled: bool = False
@@ -144,9 +145,10 @@ class SolveResult(NamedTuple):
     weight_n_psi: torch.Tensor
     tsdf_global_psi_inv: torch.Tensor
     weight_global_psi_inv: torch.Tensor
-    iters: int
+    iters: int                 # all iterations, coarse pyramid levels included
     max_norm: float
     energy: torch.Tensor
+    coarse_iters: int = 0      # the coarse levels' share of iters
 
 
 def estimate_psi(
@@ -169,27 +171,55 @@ def estimate_psi(
     momentum: Optional[float] = None,
     stall_window: int = 0,
     stall_rel: float = 1e-3,
+    skip_tails: bool = False,
     skip_inv_warps: bool = False,
     skip_weight_warp: bool = False,
+    inner_steps: int = 0,
+    inv_multigrid: bool = False,
+    inv_coarse: bool = False,
 ) -> SolveResult:
     """The full warp-field solve for one frame (``sobfu_tpu.solver.
-    estimate_psi``, additive reference path).
+    estimate_psi``, additive path).
 
     warp_window: K of the window sampler for every warp, iteration and
     inverse; None = exact sampler. psi_inv0 warm-starts the inverse fixed
     point (None = identity). momentum: heavy-ball coefficient (None = plain
     GD). record_energy: per-iteration rows (pre-update data energy,
     pre-update reg energy, update norm). stall_window / stall_rel: the
-    data-energy stall stop (0 = off). skip_inv_warps: return pass-throughs
-    for phi_global o psi_inv (the no-log loop). skip_weight_warp: return the
-    unwarped weight_n (the caller fuses with the warp_fuse kernel).
+    data-energy stall stop (0 = off); the energy comes from kernel A's (or
+    E's) own output and is read on the host only at check iterations.
+    skip_tails: no inverse and no tail warps (coarse pyramid levels):
+    psi_inv = psi and the volumes pass through. skip_inv_warps: return
+    pass-throughs for phi_global o psi_inv (the no-log loop).
+    skip_weight_warp: return the unwarped weight_n (the caller fuses with
+    the warp_fuse kernel).
+
+    inner_steps > 1: run the loop in chunks of that many iterations, each
+    one launch of kernel E (the coarse pyramid level's
+    ``fused_gd_multi_fold``). The stop tests read the chunk's LAST norm and
+    energy at ``iter + inner_steps``, so a mid-chunk stop overshoots by up
+    to inner_steps - 1 iterations (sobfu_tpu/solver.py:337-345); needs
+    stall_window % inner_steps == 0. The caller applies JAX's
+    preconditions (Solver, estimate_psi_pyramid).
+
+    inv_multigrid: the inverse is :func:`pyramid.estimate_inverse_multigrid`
+    (with a window and even dims): one anchoring step at full resolution,
+    none with skip_inv_warps; inv_coarse returns it at half resolution
+    (the coarse carry; needs skip_inv_warps) and psi_inv0 may be half-res.
     """
+    from sobfu_tpu_torch import pyramid
+
     dev = psi.device
     K = warp_window
     taps_t = torch.as_tensor(np.asarray(taps, np.float32), device=dev)
     alpha = float(np.float32(alpha))
     w_reg = float(np.float32(w_reg))
     thresh = float(np.float32(max_update_norm_thresh))
+    n_step = int(inner_steps) if inner_steps and int(inner_steps) > 1 else 1
+    if n_step > 1 and stall_window % n_step:
+        raise ValueError(f"stall_window {stall_window} is not a multiple of inner_steps {n_step}")
+    if n_step > 1 and record_energy and energy_cap < n_step:
+        raise ValueError("record_energy with inner_steps needs energy_cap >= inner_steps")
     energy = torch.zeros(
         (energy_cap if record_energy else 1, 3), dtype=torch.float32, device=dev
     )
@@ -198,44 +228,65 @@ def estimate_psi(
         return kernels.warp(vol[None], at, K, (floor,))[0]
 
     def gd_step(state: SolverState) -> SolverState:
+        """n_step iterations; the stop values are the last iteration's."""
         psi, tsdf_n_psi = state.psi, state.tsdf_n_psi
-        psi_new, tsdf_new, vel_new, max_sq = kernels.gd_iteration(
-            psi, tsdf_n_psi, state.vel, tsdf_global, tsdf_n, taps_t, alpha, w_reg,
-            momentum, K,
-        )
-        mnorm = torch.sqrt(max_sq)
-        if record_energy:
-            # pre-update energies beside the update norm (solver.py row layout)
-            state.energy[min(state.iter, energy_cap - 1)] = torch.stack(
-                [data_energy(tsdf_global, tsdf_n_psi), reg_energy_sobolev(psi), mnorm]
-            )
-        it1 = state.iter + 1
+        it1 = state.iter + n_step
+        at_check = bool(stall_window) and it1 % stall_window == 0
+        args = (psi, tsdf_n_psi, state.vel, tsdf_global, tsdf_n, taps_t, alpha, w_reg,
+                momentum, K)
+        if n_step == 1:
+            out = kernels.gd_iteration(*args, with_energy=at_check)
+            psi_new, tsdf_new, vel_new, max_sq = out[:4]
+            e = out[4] if at_check else None
+            mnorm = torch.sqrt(max_sq)
+            if record_energy:
+                # pre-update energies beside the update norm (solver.py row layout)
+                energy[min(state.iter, energy_cap - 1)] = torch.stack(
+                    [data_energy(tsdf_global, tsdf_n_psi), reg_energy_sobolev(psi), mnorm]
+                )
+        else:
+            out = kernels.gd_multi(*args, n_step, with_energy=at_check,
+                                   with_verbose=record_energy)
+            psi_new, tsdf_new, vel_new = out.psi, out.tnp, out.vel
+            mnorm = torch.sqrt(out.mx_sq[-1])
+            e = out.e_data[-1] if at_check else None
+            if record_energy:
+                row0 = max(0, min(state.iter, energy_cap - n_step))
+                energy[row0:row0 + n_step] = torch.stack(
+                    [out.e_pre, out.e_reg, torch.sqrt(out.mx_sq)], dim=1
+                )
         e_ref, stalled = state.e_ref, state.stalled
-        if stall_window:
-            e_now = np.float32(float(data_energy(tsdf_global, tsdf_new)))
-            at_check = it1 % stall_window == 0
+        if at_check:
+            e_now = np.float32(float(e))
             stalled = stalled or (
-                at_check
-                and it1 >= 2 * stall_window
+                it1 >= 2 * stall_window
                 and np.float32(e_ref) - e_now < np.float32(stall_rel) * abs(e_now)
             )
-            if at_check:
-                e_ref = float(e_now)
-        return SolverState(
-            psi_new, tsdf_new, it1, float(mnorm), state.energy, vel_new, e_ref, stalled
-        )
+            e_ref = float(e_now)
+        return SolverState(psi_new, tsdf_new, it1, float(mnorm), vel_new, e_ref, stalled)
 
-    # the stop test reads the max norm on the host after every iteration:
-    # the same iteration count as the JAX while_loop's predicate
+    # the stop test reads the max norm on the host after every step: the
+    # same iteration count as the JAX while_loop's predicate
     state = SolverState(
-        psi, warp1(tsdf_n, psi), 0, float("inf"), energy,
+        psi, warp1(tsdf_n, psi), 0, float("inf"),
         torch.zeros_like(psi) if momentum is not None else None,
     )
     while state.iter < max_iter and state.max_norm > thresh and not state.stalled:
         state = gd_step(state)
     psi, tsdf_n_psi, it, mnorm = state.psi, state.tsdf_n_psi, state.iter, state.max_norm
 
-    psi_inv = kernels.inverse_fixed_point(psi, inverse_iters, K, init=psi_inv0)
+    if skip_tails:
+        return SolveResult(psi, psi, tsdf_n_psi, weight_n, tsdf_global, weight_global, it,
+                           mnorm, energy)
+    if inv_multigrid and K is not None and all(d % 2 == 0 for d in psi.shape[1:]):
+        if inv_coarse and not skip_inv_warps:
+            raise ValueError("inv_coarse carries a warm-start-only inverse: needs skip_inv_warps")
+        psi_inv = pyramid.estimate_inverse_multigrid(
+            psi, inverse_iters, K, init=psi_inv0, fine_iters=0 if skip_inv_warps else 1,
+            return_coarse=inv_coarse,
+        )
+    else:
+        psi_inv = kernels.inverse_fixed_point(psi, inverse_iters, K, init=psi_inv0)
     if skip_inv_warps:
         tsdf_g_inv, weight_g_inv = tsdf_global, weight_global
     else:
@@ -258,17 +309,187 @@ def estimate_psi(
 
 
 # ---------------------------------------------------------------------------
-# host-facing Solver (parity with sobfu::cuda::Solver, solver.hpp:56-94)
+# coarse-to-fine pyramid solve
 # ---------------------------------------------------------------------------
+
+# iterations per kernel E launch on the coarse levels (sobfu_tpu/solver.py:1041)
+COARSE_INNER_STEPS = 16
+# level L stops at max_update_norm * COARSE_THRESH_SCALE**L (sobfu_tpu/solver.py:1016-1018)
+COARSE_THRESH_SCALE = 0.5
 
 # keys the port does not run yet, with the ROADMAP item that brings them
 _NOT_PORTED = "not ported to sobfu_tpu_torch yet (ROADMAP.md, {})"
 
 
+def runs_gd_multi(dims_zyx, fused: bool) -> bool:
+    """Where the JAX package runs ``fused_gd_multi_fold`` on a level: the
+    fused path on a Y-foldable grid, X = 64, Y even, Z % 8 == 0
+    (sobfu_tpu/solver.py:469-471, 1021-1041)."""
+    Z, Y, X = dims_zyx
+    return bool(fused) and X == 64 and Y % 2 == 0 and Z % 8 == 0
+
+
+def estimate_psi_pyramid(
+    psi: torch.Tensor,
+    tsdf_global: torch.Tensor,
+    weight_global: torch.Tensor,
+    tsdf_n: torch.Tensor,
+    weight_n: torch.Tensor,
+    taps,
+    alpha: float,
+    w_reg: float,
+    max_iter: int,
+    max_update_norm_thresh: float,
+    psi_inv0: Optional[torch.Tensor] = None,
+    *,
+    levels: int = 2,
+    record_energy: bool = False,
+    energy_cap: int = 0,
+    inverse_iters: int = 48,
+    warp_window: Optional[int] = None,
+    momentum: Optional[float] = None,
+    fused: bool = False,
+    fine_window: Optional[int] = None,
+    stall_window: int = 0,
+    stall_rel: float = 1e-3,
+    skip_inv_warps: bool = False,
+    skip_weight_warp: bool = False,
+    inv_multigrid: bool = False,
+    inv_coarse: bool = False,
+) -> SolveResult:
+    """Coarse-to-fine wrapper around :func:`estimate_psi`
+    (``sobfu_tpu.solver.estimate_psi_pyramid``, additive fine level).
+
+    Level L runs on 2^L-downsampled TSDFs (the weights are never read by
+    the loop, so only the TSDFs are pooled). The incoming displacement is
+    downsampled to the coarsest level; each level's result is upsampled
+    with its displacement doubled to warm-start the next. Coarse levels stop
+    at ``thresh * 0.5^L`` or after max_iter, with the metric-scaled window
+    K_c = ceil(K / 2^L), no stall detector and no tails; only the fine level
+    runs the inverse and the tail warps. ``iters`` counts every level's
+    iterations (``coarse_iters`` the coarse share).
+
+    fused: the accelerator dispatch (``Solver.fused``; JAX's fused_db). A
+    coarse level where JAX would run ``fused_gd_multi_fold``
+    (:func:`runs_gd_multi`) runs kernel E in chunks of 16 iterations with
+    the chunked stop; every other level runs kernel A.
+
+    fine_window (a compositive fine level) is not ported yet.
+    """
+    from sobfu_tpu_torch import pyramid
+
+    if levels < 1:
+        raise ValueError(f"levels must be >= 1, got {levels}")
+    if inv_coarse and not inv_multigrid:
+        raise ValueError("inv_coarse rides the multigrid inverse")
+    if fine_window is not None:
+        raise NotImplementedError(
+            "FINE_WINDOW (a compositive fine level) " + _NOT_PORTED.format("Next, item 2")
+        )
+    dev = psi.device
+    dims = tuple(tsdf_n.shape)
+    ident_f = fields.identity_field(dims, device=dev)
+
+    pyr = [(tsdf_global, tsdf_n)]
+    for _ in range(levels - 1):
+        tg_c, tn_c = pyr[-1]
+        pyr.append((pyramid.downsample2(tg_c), pyramid.downsample2(tn_c)))
+
+    disp = psi - ident_f
+    if levels > 1:
+        disp = pyramid.resample_disp(disp, pyr[-1][0].shape, 0.5 ** (levels - 1))
+
+    total_coarse = 0
+    for lev in range(levels - 1, 0, -1):
+        tg_c, tn_c = pyr[lev]
+        dims_c = tuple(tn_c.shape)
+        ident_c = fields.identity_field(dims_c, device=dev)
+        thresh_c = float(
+            np.float32(max_update_norm_thresh) * np.float32(COARSE_THRESH_SCALE ** lev)
+        )
+        K_c = max(1, -(-int(warp_window) // (2 ** lev))) if warp_window is not None else None
+        res_c = estimate_psi(
+            ident_c + disp, tg_c, tg_c, tn_c, tn_c, taps, alpha, w_reg, max_iter, thresh_c,
+            skip_tails=True,
+            warp_window=K_c,
+            momentum=momentum,
+            inner_steps=COARSE_INNER_STEPS if runs_gd_multi(dims_c, fused) else 0,
+            # no stall detector on coarse levels: their data energy plateaus
+            # early (sobfu_tpu/solver.py:1055-1059)
+            stall_window=0,
+        )
+        total_coarse += res_c.iters
+        disp = pyramid.resample_disp(res_c.psi - ident_c, pyr[lev - 1][0].shape, 2.0)
+
+    res = estimate_psi(
+        ident_f + disp, tsdf_global, weight_global, tsdf_n, weight_n, taps, alpha, w_reg,
+        max_iter, max_update_norm_thresh, psi_inv0,
+        record_energy=record_energy,
+        energy_cap=energy_cap,
+        inverse_iters=inverse_iters,
+        warp_window=warp_window,
+        momentum=momentum,
+        stall_window=stall_window,
+        stall_rel=stall_rel,
+        skip_inv_warps=skip_inv_warps,
+        skip_weight_warp=skip_weight_warp,
+        inv_multigrid=inv_multigrid,
+        inv_coarse=inv_coarse,
+    )
+    return res._replace(iters=res.iters + total_coarse, coarse_iters=total_coarse)
+
+
+def production_pyramid_kwargs(dim: int, *, warm: bool = True, no_log: bool = True) -> dict:
+    """The production configuration of :func:`estimate_psi_pyramid` on a
+    cubic grid of extent ``dim`` (``sobfu_tpu.solver.production_pyramid_
+    kwargs`` without its TPU layout keys fused_db, conv_mxu and fold_xmats;
+    ``fused`` is the port's dispatch flag in fused_db's place).
+
+    warm: per-frame steady state (previous-frame inverse, 3 fixed-point
+    steps); False = a cold single solve (48 steps). no_log: the no-log
+    loop, where psi_inv is a warm-start-only product (skip_inv_warps, and
+    the half-resolution inverse carry when warm).
+    """
+    multigrid = dim % 2 == 0 and dim >= 64
+    return dict(
+        levels=3 if dim >= 256 else 2,
+        warp_window=2,
+        momentum=0.95,
+        fine_window=None,
+        stall_window=16,
+        stall_rel=1e-2,
+        fused=True,
+        inverse_iters=3 if warm else 48,
+        skip_inv_warps=no_log,
+        inv_multigrid=multigrid,
+        inv_coarse=bool(warm and no_log and multigrid),
+    )
+
+
+# ---------------------------------------------------------------------------
+# host-facing Solver (parity with sobfu::cuda::Solver, solver.hpp:56-94)
+# ---------------------------------------------------------------------------
+
+
 class Solver:
-    """Reads the solver keys of ``params`` the way ``sobfu_tpu.solver.Solver``
-    does on its non-fused path. USE_PALLAS, WARP_PALLAS, Z_CHUNKS, CONV_MXU
-    and FOLD_XMATS select TPU layouts and have no effect here."""
+    """Reads the solver keys of ``params`` and derives the solve's options
+    the way ``sobfu_tpu.solver.Solver`` does on an accelerator.
+
+    JAX derives its dispatch from ``fused_pallas``, whose automatic rule
+    holds only off the CPU. The port takes the accelerator's rule whatever
+    its device, so the derivations never depend on ``torch.device``:
+    ``fused`` (FUSED_PALLAS, else auto) is on when WARP_WINDOW is 1..4, the
+    filter has at most 7 taps and X >= 64 (the platform test and the Mosaic
+    tiling tests are left out). From it, as in JAX: PYRAMID_LEVELS (dropped
+    to 1 when the dims do not halve evenly), INV_MULTIGRID (auto: fused with
+    a pyramid), INNER_STEPS (kept only on a fused X=64 grid with MAX_ITER
+    and STALL_WINDOW multiples of it), INV_COARSE (an attribute, no .ini
+    key: on with INV_MULTIGRID and fused) and INVERSE_ITERS. Tests that
+    compare with JAX on the CPU pass FUSED_PALLAS explicitly to both.
+    SOLVER_MODE=compositive and FINE_WINDOW with a pyramid raise. USE_PALLAS,
+    WARP_PALLAS, Z_CHUNKS, CONV_MXU and FOLD_XMATS select TPU layouts and
+    have no effect here.
+    """
 
     def __init__(self, params: Params):
         self.params = params
@@ -279,38 +500,56 @@ class Solver:
             raise NotImplementedError(
                 "SOLVER_MODE=compositive " + _NOT_PORTED.format("Next, item 2")
             )
-        if int(getattr(params, "pyramid_levels", 1) or 1) > 1:
-            raise NotImplementedError(
-                "PYRAMID_LEVELS>1 " + _NOT_PORTED.format("Next, item 1")
-            )
-        if int(getattr(params, "inner_steps", 0) or 0) > 1:
-            raise NotImplementedError(
-                "INNER_STEPS " + _NOT_PORTED.format("Next, item 3")
-            )
-        if getattr(params, "inv_multigrid", None):
-            raise NotImplementedError(
-                "INV_MULTIGRID " + _NOT_PORTED.format("Next, item 1")
-            )
-        if getattr(params, "inv_coarse", None):
-            raise NotImplementedError(
-                "INV_COARSE " + _NOT_PORTED.format("Next, item 1")
-            )
         self.warp_window = getattr(params, "warp_window", None)
-        if self.warp_window is None and getattr(params, "fused_pallas", None):
-            # FUSED_PALLAS=1 without WARP_WINDOW: the JAX package's fused
-            # kernel is window-based and takes the production default K=2
+        self.pyramid_levels = int(getattr(params, "pyramid_levels", 1) or 1)
+        if self.pyramid_levels > 1:
+            f = 2 ** (self.pyramid_levels - 1)
+            if any(d % f for d in params.volume_dims):
+                self.pyramid_levels = 1  # dims don't halve evenly
+        X, Y, Z = params.volume_dims  # volume_dims is (X, Y, Z)
+        fused = getattr(params, "fused_pallas", None)
+        if fused is None:
+            ww = self.warp_window
+            fused = ww is not None and 1 <= int(ww) <= 4 and len(self.taps) <= 7 and X >= 64
+        self.fused = bool(fused)
+        if self.fused and self.warp_window is None:
+            # the fused path is window-based: the production default K=2
             self.warp_window = 2
         self.momentum = getattr(params, "momentum", None)
         self.stall_window = int(getattr(params, "stall_window", 0) or 0)
         self.stall_rel = float(getattr(params, "stall_rel", 1e-3))
+        self.fine_window = getattr(params, "fine_window", None)
+        if self.fine_window is not None and self.pyramid_levels > 1:
+            raise NotImplementedError(
+                "FINE_WINDOW with PYRAMID_LEVELS>1 (a compositive fine level) "
+                + _NOT_PORTED.format("Next, item 2")
+            )
+        img = getattr(params, "inv_multigrid", None)
+        self.inv_multigrid = (
+            self.fused and (self.fine_window is not None or self.pyramid_levels > 1)
+            if img is None
+            else bool(img)
+        )
+        inner = int(getattr(params, "inner_steps", 0) or 0)
+        if inner > 1 and (
+            not runs_gd_multi((Z, Y, X), self.fused)
+            or (self.stall_window and self.stall_window % inner)
+            or params.max_iter % inner
+        ):
+            inner = 0
+        self.inner_steps = inner
         warm = getattr(params, "inverse_warm", None)
         self.inverse_warm = self.warp_window is not None if warm is None else bool(warm)
+        self.inv_coarse = bool(
+            getattr(params, "inv_coarse", None) and self.inv_multigrid and self.fused
+        )
         inv_iters = getattr(params, "inverse_iters", None)
         if inv_iters is None:
             inv_iters = 3 if self.inverse_warm else 48
         self.inverse_iters = int(inv_iters)
 
     def solve_kwargs(self) -> dict:
+        """The options every solve of this Solver shares."""
         return dict(
             inverse_iters=self.inverse_iters,
             warp_window=self.warp_window,
@@ -319,19 +558,37 @@ class Solver:
             stall_rel=self.stall_rel,
         )
 
+    def solve(self, psi, tsdf_global, weight_global, tsdf_n, weight_n, psi_inv0=None, *,
+              record_energy: bool = False, skip_inv_warps: bool = False,
+              skip_weight_warp: bool = False, inv_coarse: bool = False) -> SolveResult:
+        """One frame's solve on tensors: the pyramid when PYRAMID_LEVELS > 1,
+        else the single-level solve (with INNER_STEPS chunks where kept)."""
+        p = self.params
+        args = (psi, tsdf_global, weight_global, tsdf_n, weight_n, self.taps, p.alpha,
+                p.w_reg, p.max_iter, p.max_update_norm, psi_inv0)
+        kw = dict(
+            record_energy=record_energy,
+            energy_cap=p.max_iter if record_energy else 0,
+            skip_inv_warps=skip_inv_warps,
+            skip_weight_warp=skip_weight_warp,
+            **self.solve_kwargs(),
+        )
+        if self.pyramid_levels > 1:
+            return estimate_psi_pyramid(
+                *args, levels=self.pyramid_levels, fused=self.fused,
+                inv_multigrid=self.inv_multigrid, inv_coarse=inv_coarse, **kw,
+            )
+        return estimate_psi(*args, inner_steps=self.inner_steps, **kw)
+
     def estimate_psi(self, phi_global, phi_global_psi_inv, phi_n, phi_n_psi,
                      psi, psi_inv) -> SolveResult:
         """Run the solve; updates the passed volume/field wrappers in place
         (reference sob_fusion.cpp:141 -> solver.cpp:69-101)."""
         p = self.params
-        record = self.verbosity > 0
-        res = estimate_psi(
+        res = self.solve(
             psi.data, phi_global.tsdf, phi_global.weight, phi_n.tsdf, phi_n.weight,
-            self.taps, p.alpha, p.w_reg, p.max_iter, p.max_update_norm,
             psi_inv.data if self.inverse_warm else None,
-            record_energy=record,
-            energy_cap=p.max_iter if record else 0,
-            **self.solve_kwargs(),
+            record_energy=self.verbosity > 0,
         )
         psi.data = res.psi
         psi_inv.data = res.psi_inv
@@ -344,6 +601,8 @@ class Solver:
             iters = int(res.iters)
             hist = res.energy.cpu().numpy()
             stride = 1 if self.verbosity >= 2 else 50
+            # valid rows carry a positive max-update norm (only the fine
+            # level's rows are recorded; iters counts the coarse levels too)
             nz = np.flatnonzero(hist[:, 2] > 0)
             n_valid = int(nz[-1]) + 1 if nz.size else 0
             for i in range(0, min(iters, n_valid), stride):
@@ -355,7 +614,7 @@ class Solver:
                 )
             if float(res.max_norm) <= p.max_update_norm:
                 print(f"SOLVER CONVERGED AFTER {iters} ITERATIONS")
-            elif self.stall_window and iters < p.max_iter:
+            elif self.stall_window and iters < p.max_iter * max(1, self.pyramid_levels):
                 print(
                     f"SOLVER STOPPED ON DATA-ENERGY STALL AFTER {iters} "
                     "ITERATIONS (update norm still above threshold)"

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card: each against its plain torch version.
+"""The CUDA kernels on the card: each against its plain torch version, and
+the solver (single-level and pyramid) on the card against its goldens.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither jax nor sobfu_tpu, so it runs where only torch is
@@ -125,3 +126,131 @@ def test_solver_on_card_matches_golden(cuda, name, K):
     np.testing.assert_allclose(res.psi.cpu().numpy(), g["psi"], atol=1e-5)
     np.testing.assert_allclose(res.tsdf_n_psi.cpu().numpy(), g["tnp"], atol=1e-5)
     np.testing.assert_allclose(res.psi_inv.cpu().numpy(), g["psi_inv"], atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 2])
+def test_gd_iteration_energy_on_card(cuda, K):
+    """A's stall energy: within rtol 1e-5 of the plain data_energy (a sum in
+    another order) and the same bits on every run (fixed-order reduction)."""
+    d = _inputs(cuda, 1.5)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, 0.95, K)
+    got = kernels.gd_iteration(*args, with_energy=True)
+    want = kernels.gd_iteration_plain(*args, with_energy=True)
+    torch.testing.assert_close(got[4], want[4], atol=0, rtol=1e-5)
+    assert torch.equal(kernels.gd_iteration(*args, with_energy=True)[4], got[4])
+    assert len(kernels.gd_iteration(*args)) == 4
+
+
+# (dims, K, momentum): the coarse level's fold shapes and a non-cubic grid
+MULTI_CASES = [((8, 8, 64), 1, 0.95), ((16, 16, 64), 1, 0.95), ((12, 16, 20), 2, None),
+               ((12, 16, 20), None, 0.9)]
+
+
+def _multi_inputs(dev, dims, seed=5):
+    rng = np.random.default_rng(seed)
+    ident = np.stack(np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")[::-1])
+    arrays = dict(
+        tg=rng.standard_normal(dims) * 0.3,
+        live=rng.standard_normal(dims) * 0.3,
+        psi=ident + rng.uniform(-0.8, 0.8, (3,) + dims),
+        tnp=rng.standard_normal(dims) * 0.3,
+        vel=rng.standard_normal((3,) + dims) * 0.1,
+    )
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in arrays.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,K,momentum", MULTI_CASES)
+def test_gd_multi_bitwise_vs_chained_gd_iteration(cuda, dims, K, momentum):
+    """E with n_inner=16 equals 16 chained A launches bit for bit: state,
+    velocity, every norm row and every energy row."""
+    d = _multi_inputs(cuda, dims)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, momentum, K)
+    out = kernels.gd_multi(*args, 16, with_energy=True, with_verbose=True)
+    psi, tnp, vel = d["psi"], d["tnp"], d["vel"]
+    for it in range(16):
+        psi, tnp, vel, mx, e = kernels.gd_iteration(
+            psi, tnp, vel, d["tg"], d["live"], taps, 0.05, 0.2, momentum, K, with_energy=True
+        )
+        assert torch.equal(out.mx_sq[it], mx), it
+        assert torch.equal(out.e_data[it], e), it
+    assert torch.equal(out.psi, psi) and torch.equal(out.tnp, tnp)
+    if momentum is not None:
+        assert torch.equal(out.vel, vel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,K,momentum", MULTI_CASES)
+@pytest.mark.parametrize("verbose", [False, True])
+def test_gd_multi_matches_plain(cuda, dims, K, momentum, verbose):
+    """E against its plain version: atol 1e-5 on the state, rtol 1e-5 on the
+    norm and energy rows (sums in another order)."""
+    d = _multi_inputs(cuda, dims)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, momentum, K,
+            16)
+    got = kernels.gd_multi(*args, with_energy=True, with_verbose=verbose)
+    want = kernels.gd_multi_plain(*args, with_energy=True, with_verbose=verbose)
+    for g, w in zip(got[:3], want[:3]):
+        if w is not None:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    for g, w in zip(got[3:], want[3:]):
+        if w is not None:
+            torch.testing.assert_close(g, w, atol=0, rtol=1e-5)
+    assert (got.e_pre is None) != verbose
+
+
+@pytest.mark.cuda
+def test_pyramid_on_card_matches_golden(cuda):
+    """tests/golden/solver_16_pyramid.npz on the card (atol 1e-5)."""
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dims, vs = (16, 16, 16), 0.25 / 16
+    tg, wg = init_sphere(dims, (vs,) * 3, (0.125,) * 3, 0.04, 8 * vs, 3 * vs, device=cuda)
+    tn, wn = init_sphere(dims, (vs,) * 3, (0.118, 0.125, 0.125), 0.04, 8 * vs, 3 * vs,
+                         device=cuda)
+    kernels.reset_launch_counts()
+    res = solver.estimate_psi_pyramid(
+        fields.identity_field(dims, device=cuda), tg, wg, tn, wn,
+        solver.sobolev_filter_1d(7, 0.1), 0.1, 0.3, 32, -1.0, levels=2, warp_window=2,
+        inverse_iters=8,
+    )
+    assert kernels.launch_counts["gd_iteration"] == 64
+    g = np.load(os.path.join(ROOT, "tests", "golden", "solver_16_pyramid.npz"))
+    np.testing.assert_allclose(res.psi.cpu().numpy(), g["psi"], atol=1e-5)
+    np.testing.assert_allclose(res.tsdf_n_psi.cpu().numpy(), g["tnp"], atol=1e-5)
+    np.testing.assert_allclose(res.psi_inv.cpu().numpy(), g["psi_inv"], atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pyramid_coarse_x64_level_launches_gd_multi(cuda):
+    """Fine 16x16x128 with the fused dispatch: the 8x8x64 coarse level runs
+    kernel E in chunks of 16, the fine level kernel A, and the multigrid
+    inverse kernel C; the result matches the same solve on the CPU."""
+    dims = (16, 16, 128)
+    rng = np.random.default_rng(5)
+    tg = rng.standard_normal(dims).astype(np.float32) * 0.1
+    tn = np.roll(tg, 1, axis=2)
+    kw = dict(levels=2, warp_window=2, momentum=0.95, inverse_iters=3, stall_window=16,
+              stall_rel=1e-2, fused=True, inv_multigrid=True)
+    taps = solver.sobolev_filter_1d(7, 0.1)
+
+    def run(dev):
+        t = [torch.as_tensor(a, device=dev) for a in (tg, tn)]
+        return solver.estimate_psi_pyramid(
+            fields.identity_field(dims, device=dev), t[0], t[0], t[1], t[1], taps, 0.05, 0.2,
+            40, 1e-3, **kw,
+        )
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    assert kernels.launch_counts["gd_multi"] == got.coarse_iters // 16 > 0
+    assert kernels.launch_counts["gd_iteration"] == got.iters - got.coarse_iters
+    assert kernels.launch_counts["inverse_fixed_point"] == 2
+    want = run("cpu")
+    assert (got.iters, got.coarse_iters) == (want.iters, want.coarse_iters)
+    np.testing.assert_allclose(got.psi.cpu().numpy(), want.psi.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.psi_inv.cpu().numpy(), want.psi_inv.numpy(), atol=1e-5)

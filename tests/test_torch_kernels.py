@@ -1,4 +1,4 @@
-"""The four kernel wrappers of sobfu_tpu_torch.ops.kernels.
+"""The five kernel wrappers of sobfu_tpu_torch.ops.kernels.
 
 On the CPU each wrapper runs its plain torch version; these are held to the
 JAX package's XLA references — the same references its own Pallas tests use
@@ -158,7 +158,9 @@ def test_cpu_tensors_launch_no_kernel():
     d = {k: torch.from_numpy(v) for k, v in _inputs().items()}
     taps = torch.from_numpy(js.sobolev_filter_1d(7, 0.1))
     kernels.gd_iteration(d["psi"], d["tnp"], None, d["tg"], d["live"], taps, 0.1, 0.2,
-                         None, 2)
+                         None, 2, with_energy=True)
+    kernels.gd_multi(d["psi"], d["tnp"], None, d["tg"], d["live"], taps, 0.1, 0.2, None, 2, 2,
+                     with_energy=True, with_verbose=True)
     kernels.warp(d["tg"][None], d["psi"], 2, (False,))
     kernels.inverse_fixed_point(d["psi"], 2, None)
     kernels.warp_fuse(d["tg"], d["tg"], d["tnp"], d["live"], d["psi"], 64.0, 2)
@@ -172,3 +174,54 @@ def test_wrappers_reject_other_devices():
         kernels.warp(meta, psi, 2, (False,))
     with pytest.raises(ValueError, match="1 entries for 2 channels"):
         kernels.warp(torch.zeros((2,) + DIMS), torch.zeros((3,) + DIMS), 2, (False,))
+
+
+@pytest.mark.parametrize("K", [None, 2])
+def test_gd_iteration_plain_energy_matches_data_energy(K):
+    """A's stall energy: 0.5 * sum (tg - tnp')^2, the plain version's
+    data_energy of its own tnp' (bit for bit) and JAX's within rtol 1e-5
+    (a sum in another order); only returned when asked for."""
+    from sobfu_tpu_torch.solver import data_energy
+
+    d = {k: torch.from_numpy(v) for k, v in _inputs().items()}
+    taps = torch.from_numpy(js.sobolev_filter_1d(7, 0.1))
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, 0.9, K)
+    got = kernels.gd_iteration(*args, with_energy=True)
+    assert torch.equal(got[4], data_energy(d["tg"], got[1]))
+    want = js.data_energy(jnp.asarray(_np(d["tg"])), jnp.asarray(_np(got[1])))
+    np.testing.assert_allclose(float(got[4]), float(want), rtol=1e-5)
+    assert len(kernels.gd_iteration(*args)) == 4
+
+
+@pytest.mark.parametrize("momentum,with_energy,with_verbose", [(0.95, True, True),
+                                                               (None, True, False),
+                                                               (0.9, False, False)])
+def test_gd_multi_plain_bitwise_vs_chained(momentum, with_energy, with_verbose):
+    """E's plain version with n_inner=3 against 3 chained plain A steps:
+    state, velocity, every norm row and every energy row bit for bit; the
+    verbose rows are the pre-update energies of each step."""
+    from sobfu_tpu_torch.solver import data_energy, reg_energy_sobolev
+
+    d = {k: torch.from_numpy(v) for k, v in _inputs((8, 8, 64), amp=0.8, seed=12).items()}
+    taps = torch.from_numpy(js.sobolev_filter_1d(7, 0.1))
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, momentum, 1)
+    out = kernels.gd_multi(*args, 3, with_energy=with_energy, with_verbose=with_verbose)
+    psi, tnp, vel = d["psi"], d["tnp"], d["vel"]
+    for it in range(3):
+        if with_verbose:
+            assert torch.equal(out.e_pre[it], data_energy(d["tg"], tnp))
+            assert torch.equal(out.e_reg[it], reg_energy_sobolev(psi))
+        step = kernels.gd_iteration(
+            psi, tnp, vel, d["tg"], d["live"], taps, 0.05, 0.2, momentum, 1,
+            with_energy=with_energy,
+        )
+        psi, tnp, vel = step[:3]
+        assert torch.equal(out.mx_sq[it], step[3])
+        if with_energy:
+            assert torch.equal(out.e_data[it], step[4])
+    assert torch.equal(out.psi, psi) and torch.equal(out.tnp, tnp)
+    assert (out.vel is None) == (momentum is None)
+    if momentum is not None:
+        assert torch.equal(out.vel, vel)
+    assert (out.e_data is None) != with_energy
+    assert (out.e_pre is None) != with_verbose

@@ -198,3 +198,99 @@ def test_cli_writes_meshes(tmp_path):
     text = (scene / "meshes" / meshes[-1]).read_text()
     assert "POLYGONS" in text and int(text.split("POINTS ")[1].split()[0]) > 0
     assert sorted(os.listdir(scene / "fields")) == ["psi_0001.vti", "psi_0002.vti"]
+
+
+# the production solver keys at 32^3: PYRAMID_LEVELS=2, momentum 0.95 with
+# ALPHA 0.05, the stall stop, MAX_UPDATE_NORM 4e-3. INV_MULTIGRID=0 keeps
+# JAX on the CPU on the branch the port takes (its multigrid inverse runs
+# only inside its Pallas dispatch).
+PYRAMID_KEYS = dict(pyramid_levels=2, momentum=0.95, alpha=0.05, max_iter=64,
+                    max_update_norm=4e-3, stall_window=16, stall_rel=1e-2,
+                    inv_multigrid=False)
+
+
+@pytest.fixture(scope="module")
+def pyramid_runs():
+    frames = _frames()
+    fj = jp.SobFusion(_params(jc, 2, **PYRAMID_KEYS))
+    fj.need_inv_warps = False
+    ft = tp.SobFusion(_params(tc, 2, **PYRAMID_KEYS), device="cpu")
+    ft.need_inv_warps = False
+    iters = []
+    for d in frames:
+        fj(jnp.asarray(d))
+        ft(d)
+        if ft.last_solve is not None:
+            iters.append((ft.last_solve.iters, ft.last_solve.coarse_iters,
+                          int(fj.last_solve.iters)))
+    return fj, ft, iters
+
+
+def test_pyramid_frames_match_jax(pyramid_runs):
+    """Every solve frame ends on the same iteration count, and the
+    canonical volume agrees at atol 1e-5 (weights exactly). psi and psi_inv
+    are held at atol 2e-5: their coordinates reach 31 voxels (1e-5 is 5 ulps
+    there), the resample contractions add their taps in another order than
+    XLA's dot (an ulp), and 112 heavy-ball iterations per frame at momentum
+    0.95 over three frames amplify that to 1.3e-5."""
+    fj, ft, iters = pyramid_runs
+    assert len(iters) == 3
+    for port_iters, coarse, jax_iters in iters:
+        assert port_iters == jax_iters and 0 < coarse < port_iters
+    np.testing.assert_allclose(ft.phi_global.tsdf.numpy(), np.asarray(fj.phi_global.tsdf),
+                               atol=1e-5)
+    np.testing.assert_array_equal(ft.phi_global.weight.numpy(),
+                                  np.asarray(fj.phi_global.weight))
+    np.testing.assert_allclose(ft.psi.data.numpy(), np.asarray(fj.psi.data), atol=2e-5)
+    np.testing.assert_allclose(ft.psi_inv.data.numpy(), np.asarray(fj.psi_inv.data),
+                               atol=2e-5)
+
+
+def test_pyramid_meshes_match_jax(pyramid_runs):
+    fj, ft, _ = pyramid_runs
+    mj, mt = fj.get_phi_global_mesh(), ft.get_phi_global_mesh()
+    assert mt.n_triangles == mj.n_triangles > 50
+    np.testing.assert_allclose(mt.vertices, mj.vertices, atol=1e-5)
+    fj.get_phi_global_psi_inv_mesh()
+    ft.get_phi_global_psi_inv_mesh()
+    np.testing.assert_allclose(ft.phi_global_psi_inv.tsdf.numpy(),
+                               np.asarray(fj.phi_global_psi_inv.tsdf), atol=1e-5)
+
+
+def test_coarse_inverse_carry():
+    """The no-log loop with the multigrid inverse and INV_COARSE: psi_inv is
+    allocated and carried at half resolution; the psi_inv mesh getter
+    materialises the full-resolution inverse (upsample + one anchoring
+    step, held to the same composition of JAX's plain pieces) and leaves
+    the carry half-res."""
+    import sobfu_tpu.fields as jf
+    from sobfu_tpu import solver as js
+
+    frames = _frames()
+    p = _params(tc, 2, fused_pallas=True, inv_coarse=True, **PYRAMID_KEYS)
+    p.inv_multigrid = None  # auto: on with the fused dispatch and a pyramid
+    ft = tp.SobFusion(p, device="cpu")
+    ft.need_inv_warps = False
+    ft(frames[0])
+    assert ft.solver.inv_multigrid and ft.solver.inv_coarse
+    half = (3, DIM // 2, DIM // 2, DIM // 2)
+    assert tuple(ft.psi_inv.data.shape) == half
+    for d in frames[1:3]:
+        ft(d)
+        assert tuple(ft.psi_inv.data.shape) == half
+    assert ft._inv_warps_stale
+    inv_c = jnp.asarray(ft.psi_inv.data.numpy())
+    ft.get_phi_global_psi_inv_mesh()
+    assert tuple(ft.psi_inv.data.shape) == half
+    dims = (DIM,) * 3
+    full = ft.full_res_inverse()
+    assert tuple(full.shape) == (3,) + dims
+    q0 = jf.identity_field(dims) + js._resample_disp(
+        inv_c - jf.identity_field(inv_c.shape[1:]), dims, 2.0)
+    want_inv = jf.estimate_inverse_window(jnp.asarray(ft.psi.data.numpy()), 1, 2, init=q0)
+    np.testing.assert_allclose(full.numpy(), np.asarray(want_inv), atol=1e-5)
+    want_tsdf = jf.sample_trilinear_window(jnp.asarray(ft.phi_global.tsdf.numpy()),
+                                           want_inv, 2)
+    assert ft.phi_global_psi_inv.tsdf.shape == ft.phi_global.tsdf.shape
+    np.testing.assert_allclose(ft.phi_global_psi_inv.tsdf.numpy(), np.asarray(want_tsdf),
+                               atol=1e-5)

@@ -131,16 +131,13 @@ def test_solver_class_verbose_prints(capsys):
     assert psi.data is res.psi and vols[3].tsdf is res.tsdf_n_psi
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("solver_mode", "compositive", "SOLVER_MODE=compositive"),
-    ("pyramid_levels", 2, "PYRAMID_LEVELS"),
-    ("inner_steps", 16, "INNER_STEPS"),
-    ("inv_multigrid", True, "INV_MULTIGRID"),
-    ("inv_coarse", True, "INV_COARSE"),
+@pytest.mark.parametrize("keys,match", [
+    ({"solver_mode": "compositive"}, "SOLVER_MODE=compositive"),
+    ({"fine_window": 1, "pyramid_levels": 2}, "FINE_WINDOW"),
 ])
-def test_unported_keys_raise(key, value, match):
+def test_unported_keys_raise(keys, match):
     with pytest.raises(NotImplementedError, match=match):
-        ts.Solver(_params(**{key: value}))
+        ts.Solver(_params(**keys))
 
 
 def test_tpu_dispatch_keys_have_no_effect():
@@ -150,3 +147,156 @@ def test_tpu_dispatch_keys_have_no_effect():
     tpu = ts.Solver(_params(warp_window=2, verbosity=0, use_pallas=True, warp_pallas=True,
                             z_chunks=8, conv_mxu=True, fold_xmats=True))
     assert plain.solve_kwargs() == tpu.solve_kwargs()
+
+
+# keys on top of _params (16^3 unless volume_dims is given); FUSED_PALLAS is
+# explicit, because JAX's automatic rule holds only off the CPU
+DERIVATION_CASES = {
+    "pyramid-128": dict(volume_dims=(128,) * 3, warp_window=2, pyramid_levels=2,
+                        fused_pallas=True, stall_window=16, max_iter=1024, inv_coarse=True),
+    "pyramid-3-odd": dict(volume_dims=(90,) * 3, warp_window=2, pyramid_levels=3,
+                          fused_pallas=True),
+    "pyramid-unfused": dict(volume_dims=(32,) * 3, warp_window=2, pyramid_levels=2,
+                            fused_pallas=False, inv_coarse=True),
+    "multigrid-explicit": dict(volume_dims=(32,) * 3, warp_window=2, pyramid_levels=2,
+                               fused_pallas=False, inv_multigrid=True, inv_coarse=True),
+    "inner-64": dict(volume_dims=(64,) * 3, warp_window=1, fused_pallas=True, inner_steps=16,
+                     stall_window=32, max_iter=1024),
+    "inner-cap": dict(volume_dims=(64,) * 3, warp_window=1, fused_pallas=True, inner_steps=16,
+                      max_iter=1000),
+    "inner-stall": dict(volume_dims=(64,) * 3, warp_window=1, fused_pallas=True,
+                        inner_steps=16, stall_window=24, max_iter=1024),
+    "inner-128": dict(volume_dims=(128,) * 3, warp_window=2, fused_pallas=True,
+                      inner_steps=16, max_iter=1024),
+    "fused-no-window": dict(volume_dims=(64,) * 3, fused_pallas=True, pyramid_levels=2),
+    "cold": dict(volume_dims=(64,) * 3, warp_window=2, inverse_warm=False, pyramid_levels=2,
+                 fused_pallas=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DERIVATION_CASES))
+def test_solver_derivations_match_jax(case):
+    from sobfu_tpu import config as jc
+
+    keys = DERIVATION_CASES[case]
+    port = ts.Solver(_params(**keys))
+    jp = jc.Params()
+    jp.volume_dims, jp.max_iter, jp.max_update_norm, jp.verbosity = (16, 16, 16), 4, -1.0, 1
+    for k, v in keys.items():
+        setattr(jp, k, v)
+    want = js.Solver(jp)
+    assert port.fused == want.fused_pallas
+    for name in ("pyramid_levels", "warp_window", "inv_multigrid", "inner_steps",
+                 "inv_coarse", "inverse_warm", "inverse_iters", "stall_window", "momentum"):
+        assert getattr(port, name) == getattr(want, name), name
+
+
+@pytest.mark.parametrize("keys,fused", [
+    (dict(volume_dims=(128,) * 3, warp_window=2), True),
+    (dict(volume_dims=(64,) * 3, warp_window=4), True),
+    (dict(volume_dims=(32,) * 3, warp_window=2), False),
+    (dict(volume_dims=(128,) * 3), False),
+    (dict(volume_dims=(128,) * 3, warp_window=5), False),
+    (dict(volume_dims=(128,) * 3, warp_window=2, s=9), False),
+])
+def test_solver_fused_rule_is_the_accelerators(keys, fused):
+    """WARP_WINDOW in 1..4, at most 7 taps, X >= 64: on every device."""
+    s = ts.Solver(_params(**keys))
+    assert s.fused is fused
+    assert s.inv_multigrid is False  # no pyramid
+    assert ts.Solver(_params(pyramid_levels=2, **keys)).inv_multigrid is fused
+
+
+def test_chunked_stop_lands_on_first_chunk_below_threshold():
+    """inner_steps=3 (kernel E's plain version): the solve stops on the
+    first multiple of 3 at which the single-step norm history is at or
+    below the threshold, with the same state as that many single steps."""
+    args = list(_fixture())
+    args[6], args[8] = 0.05, 200
+    hist = ts.estimate_psi(*args, warp_window=2, momentum=0.95, inverse_iters=2,
+                           record_energy=True, energy_cap=200).energy[:, 2].numpy()
+    thresh = float(np.sort(hist[40:120])[5])  # a norm a few steps past iteration 40
+    args[9] = thresh
+    single = ts.estimate_psi(*args, warp_window=2, momentum=0.95, inverse_iters=2)
+    chunked = ts.estimate_psi(*args, warp_window=2, momentum=0.95, inverse_iters=2,
+                              inner_steps=3)
+    want = next(m for m in range(3, 201, 3) if hist[m - 1] <= np.float32(thresh))
+    assert chunked.iters == want and single.iters <= want < single.iters + 3
+    args[8], args[9] = want, -1.0
+    fixed = ts.estimate_psi(*args, warp_window=2, momentum=0.95, inverse_iters=2)
+    assert torch.equal(chunked.psi, fixed.psi)
+
+
+def test_chunked_energy_rows_and_stall_match_single_steps():
+    """record_energy with chunks writes the same rows as single steps, and
+    the stall stop (checked on chunk ends) ends on the same iteration."""
+    args = list(_fixture())
+    args[8] = 100
+    kw = dict(warp_window=2, momentum=0.9, inverse_iters=2, stall_window=4, stall_rel=0.01,
+              record_energy=True, energy_cap=100)
+    single = ts.estimate_psi(*args, **kw)
+    chunked = ts.estimate_psi(*args, inner_steps=2, **kw)
+    assert 8 < chunked.iters == single.iters < 100
+    np.testing.assert_allclose(chunked.energy.numpy(), single.energy.numpy(), rtol=1e-6)
+    assert torch.equal(chunked.psi, single.psi)
+
+
+X64_DIMS = (8, 8, 64)
+
+
+def _x64_scene():
+    """A smooth x-profile on the X=64 fold grid and its copy moved 1.2 voxels."""
+    z, y, x = np.meshgrid(*[np.arange(d, dtype=np.float32) for d in X64_DIMS], indexing="ij")
+
+    def profile(shift):
+        return np.clip((x - 32 - shift - 0.5 * np.sin(z) - 0.3 * np.cos(y)) / 4, -1, 1)
+
+    return profile(0.0).astype(np.float32), profile(1.2).astype(np.float32)
+
+
+@pytest.mark.parametrize("thresh", [0.0305, -1.0], ids=["norm-stop", "stall-stop"])
+def test_chunked_solve_matches_jax_multi_fold(thresh):
+    """inner_steps=16 against JAX's own chunked path (fused_gd_multi_fold in
+    interpret mode, record_energy on): the norm stop lands on 48 and the
+    stall stop on 64, with the same energy rows. The first case compiles
+    the interpret-mode kernel (about 7 s on one core); the second reuses it.
+    psi holds absolute coordinates up to 64, so atol 2e-5 is 3 ulp there
+    (tests/test_pallas.py holds the fold path to the XLA one at 2e-5)."""
+    tg, tn = _x64_scene()
+    taps = ts.sobolev_filter_1d(7, 0.1)
+    kw = dict(warp_window=2, momentum=0.95, inverse_iters=2, stall_window=16, stall_rel=1e-2,
+              record_energy=True, energy_cap=96)
+    t = torch.from_numpy
+    port = ts.estimate_psi(tf.identity_field(X64_DIMS), t(tg), t(tg), t(tn), t(tn), taps, 0.05,
+                           0.2, 96, thresh, inner_steps=16, **kw)
+    j = jnp.asarray
+    want = js.estimate_psi(jf.identity_field(X64_DIMS), j(tg), j(tg), j(tn), j(tn), j(taps),
+                           jnp.float32(0.05), jnp.float32(0.2), jnp.int32(96),
+                           jnp.float32(thresh), fused_db=True, db_interpret=True, inner_steps=16,
+                           taps_static=tuple(float(v) for v in taps), **kw)
+    assert port.iters == int(want.iters) == (48 if thresh > 0 else 64)
+    for field, atol in (("psi", 2e-5), ("psi_inv", 2e-5), ("tsdf_n_psi", 1e-5),
+                        ("tsdf_global_psi_inv", 1e-5), ("weight_n_psi", 0)):
+        np.testing.assert_allclose(getattr(port, field).numpy(),
+                                   np.asarray(getattr(want, field)), atol=atol, err_msg=field)
+    np.testing.assert_allclose(port.energy.numpy(), np.asarray(want.energy), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_stall_message_counts_every_pyramid_level(capsys):
+    """iters includes the coarse level: the stall verdict compares it with
+    MAX_ITER * PYRAMID_LEVELS (sobfu_tpu/solver.py:1451-1453)."""
+    from sobfu_tpu_torch.fields import DeformationField
+    from sobfu_tpu_torch.tsdf import TsdfVolume
+
+    p = _params(warp_window=2, pyramid_levels=2, max_iter=40, stall_window=4, stall_rel=0.5,
+                momentum=0.95, alpha=0.05)
+    s = ts.Solver(p)
+    vols = [TsdfVolume(p) for _ in range(4)]
+    vols[0].init_sphere((0.5, 0.5, 0.5), 0.3)
+    vols[2].init_sphere((0.47, 0.5, 0.5), 0.3)
+    psi, psi_inv = DeformationField(p.volume_dims), DeformationField(p.volume_dims)
+    res = s.estimate_psi(vols[0], vols[1], vols[2], vols[3], psi, psi_inv)
+    out = capsys.readouterr().out
+    assert res.coarse_iters == 40 and p.max_iter < res.iters < 2 * p.max_iter
+    assert f"SOLVER STOPPED ON DATA-ENERGY STALL AFTER {res.iters} ITERATIONS" in out

@@ -1,16 +1,24 @@
 """Where the time goes in one non-rigid frame of the PyTorch port (CUDA card).
 
     python tools/profile_torch_frame.py --out DIR [--ini params/params_umbrella.ini]
-        [--warp-window 2]
+        [--warp-window 2] [--pyramid LEVELS [--dim D]]
 
 Frames 0-1 of a translating sphere (640x480, rendered in memory) warm up;
-frame 2 runs under torch.profiler (CPU + CUDA activity). Prints the frame's
-wall time, the device time per kernel name, the device busy share (kernel
-time / wall time) and, from a separate loop of gradient-descent iterations,
-the host cost per iteration with and without the per-iteration stop test
-(a host read of the max norm). Writes the key_averages table, a chrome
-trace and summary.json under --out. Needs a CUDA card; fails without one.
---warp-window -1 runs the exact sampler.
+frame 2 runs under a StageClock (preprocessing, integration and every
+level's solve timed on the host clock, a synchronise on either side of
+each); frame 3 runs under torch.profiler (CPU + CUDA activity). Prints the
+staged split, the profiled frame's wall time, the device time per kernel
+name, the device busy share (kernel time / wall time) and, from a separate
+loop of gradient-descent iterations at 128^3, the host cost per iteration
+with and without the per-iteration stop test (a host read of the max
+norm). Writes the key_averages table, a chrome trace and summary.json
+under --out. Needs a CUDA card; fails without one. --warp-window -1 runs
+the exact sampler.
+
+--pyramid LEVELS runs the production pyramid (:func:`production_params`:
+the ini plus WARP_WINDOW=2, MOMENTUM=0.95, ALPHA=0.05, MAX_ITER=1024,
+MAX_UPDATE_NORM=4e-3, STALL_WINDOW=16, STALL_REL=1e-2 and the half-res
+inverse carry) with that many levels, at --dim^3 (default 128).
 """
 
 import argparse
@@ -33,6 +41,66 @@ def _render():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.render_prims_depth
+
+
+class StageClock:
+    """Host seconds of every call to the named module-level functions while
+    the context is open, each call bracketed by ``torch.cuda.synchronize()``
+    so that the clock covers its device work. ``calls`` holds (name, shape
+    of the first argument, result, seconds) in call order.
+
+        with StageClock((solver, "estimate_psi")) as clock: fusion(depth)
+
+    times each pyramid level's solve (the coarsest first, the fine level
+    last with its inverse); the solve loop reads the max norm on the host
+    every step, so the two synchronises add next to nothing.
+    """
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, function name) pairs
+        self.calls = []
+
+    def _timed(self, name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((name, tuple(args[0].shape), out, time.perf_counter() - t0))
+            return out
+
+        return run
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in self.targets]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def production_params(ini, dim, levels):
+    """The ini plus the production pyramid keys (``solver.production_pyramid_
+    kwargs`` with the production scene's ALPHA, MAX_ITER and
+    MAX_UPDATE_NORM) at dim^3; the truncation distance and eta stay 8 and 3
+    voxels, as params_umbrella.ini gives them."""
+    from sobfu_tpu_torch.config import load_params
+
+    p = load_params(ini)
+    vs = p.volume_size[0] / dim
+    p.volume_dims = (dim, dim, dim)
+    p.tsdf_trunc_dist, p.eta = 8.0 * vs, 3.0 * vs
+    p.warp_window, p.momentum, p.alpha = 2, 0.95, 0.05
+    p.pyramid_levels, p.max_iter, p.max_update_norm = levels, 1024, 4e-3
+    p.stall_window, p.stall_rel = 16, 1e-2
+    # the half-res inverse carry has no .ini key in either package; the
+    # production configuration (solver.production_pyramid_kwargs) sets it
+    p.inv_coarse = True
+    return p
 
 
 def _device_us(evt) -> float:
@@ -82,6 +150,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ini", default=os.path.join(ROOT, "params", "params_umbrella.ini"))
     ap.add_argument("--warp-window", type=int, default=2)
+    ap.add_argument("--pyramid", type=int, default=0, metavar="LEVELS",
+                    help="the production pyramid keys with this many levels")
+    ap.add_argument("--dim", type=int, default=128, help="grid extent with --pyramid")
     ap.add_argument("--out", required=True, help="directory for the table and the trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,24 +160,45 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    from sobfu_tpu_torch import pipeline, solver
     from sobfu_tpu_torch.config import load_params
-    from sobfu_tpu_torch.pipeline import SobFusion
 
     os.makedirs(args.out, exist_ok=True)
-    p = load_params(args.ini)
-    p.warp_window = args.warp_window if args.warp_window >= 0 else None
+    if args.pyramid:
+        p = production_params(args.ini, args.dim, args.pyramid)
+    else:
+        p = load_params(args.ini)
+        p.warp_window = args.warp_window if args.warp_window >= 0 else None
     render = _render()
     frames = [
-        render(p.rows, p.cols, *p.intr, [((0.006 * i, 0.0, 0.8), 0.2)]) for i in range(3)
+        render(p.rows, p.cols, *p.intr, [((0.006 * i, 0.0, 0.8), 0.2)]) for i in range(4)
     ]
-    fusion = SobFusion(p, device="cuda")
+    fusion = pipeline.SobFusion(p, device="cuda")
     fusion.need_inv_warps = False
     for d in frames[:2]:
         fusion(d)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    targets = ((pipeline, "preprocess"), (pipeline, "integrate_dists"),
+               (solver, "estimate_psi"))
+    with StageClock(*targets) as clock:
         t0 = time.perf_counter()
         fusion(frames[2])
+        torch.cuda.synchronize()
+        staged_wall = time.perf_counter() - t0
+    stages = []
+    for name, shape, out, sec in clock.calls:
+        row = {"stage": name, "dims": shape[-3:], "ms": sec * 1e3}
+        if name == "estimate_psi":
+            row["iters"] = out.iters
+            row["ms_per_iter"] = sec * 1e3 / max(out.iters, 1)
+        stages.append(row)
+        print(json.dumps(row))
+    rest_ms = (staged_wall - sum(sec for *_, sec in clock.calls)) * 1e3
+    print(f"frame 2 (staged): {staged_wall * 1e3:.4f} ms wall, {rest_ms:.4f} ms outside "
+          f"the timed stages (pyramid resamples, fuse)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fusion(frames[3])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -121,12 +213,15 @@ def main(argv=None) -> int:
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         f.write(ka.table(sort_by="self_cuda_time_total", row_limit=60))
     prof.export_chrome_trace(os.path.join(args.out, "frame_trace.json"))
-    iters = fusion.last_solve.iters
     top = sorted(kernels_us.items(), key=lambda kv: -kv[1][0])[:12]
     summary = {
         "device": torch.cuda.get_device_name(0),
+        "volume_dims": list(p.volume_dims),
+        "pyramid_levels": fusion.solver.pyramid_levels,
+        "staged_frame": {"wall_s": staged_wall, "stages": stages, "rest_ms": rest_ms},
         "frame_wall_s": wall,
-        "iters": iters,
+        "iters": fusion.last_solve.iters,
+        "coarse_iters": fusion.last_solve.coarse_iters,
         "device_kernel_s": device_us * 1e-6,
         "device_busy_share": device_us * 1e-6 / wall if wall else None,
         "kernels": {k: {"device_ms": us / 1e3, "calls": n} for k, (us, n) in top},
