@@ -5,18 +5,21 @@
 
 Phases, one line each; any failure exits non-zero before the result lines:
   1. device     nvidia-smi name and power limit, torch / CUDA versions
-  2. build      the five kernels from sobfu_tpu_torch/csrc, one nvcc per
-                source, all started together
+  2. build      the six kernel sources of sobfu_tpu_torch/csrc, one nvcc
+                per source, all started together
   3. kernels    each kernel against its plain torch version on the same
                 CUDA tensors at the path's shapes (A-D at 128^3, 7 taps,
                 K=2 and the exact mode; A's stall energy, rtol 1e-5; E at
                 the coarse level's 64^3, K=1, momentum 0.95, 16 iterations,
-                with and without the verbose rows): atol 1e-5, bitwise for
-                the floor warp and the fuse, and E bit for bit against 16
-                chained A launches; median times from CUDA events
+                with and without the verbose rows; F at 128^3 with Kf=1,
+                Kw=2 and Kf=2, Kw=2; B on three channels, warp_field3, at
+                128^3, K=2, inside and beyond the window): atol 1e-5,
+                bitwise for the floor warp, the fuse and F, and E bit for
+                bit against 16 chained A launches; median times from CUDA
+                events
   4. goldens    the solver on the card against tests/golden/solver_16*.npz
                 (atol 1e-5, the JAX package's frozen CPU results), the
-                pyramid golden included
+                pyramid and compositive goldens included
   5. main       params/params_umbrella.ini + WARP_WINDOW=2: 4 frames of
                 640x480 depth (a translating sphere, rendered in memory)
                 through SobFusion(device="cuda") with MAX_ITER=2048, then
@@ -32,9 +35,39 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 launched (E on the 64^3 coarse level), psi_inv is carried
                 half-res and the psi_inv mesh getter materialises it full-res
   8. pyramid256 the same keys at 256^3 with PYRAMID_LEVELS=3: 2 frames
+  9. compositive umbrella + SOLVER_MODE=compositive, WARP_WINDOW=2,
+                MOMENTUM=0.9, ALPHA=0.05, PYRAMID_LEVELS=2, MAX_ITER=1024,
+                MAX_UPDATE_NORM=4e-3, STALL_WINDOW=16, STALL_REL=1e-2 at
+                128^3: 6 frames of a 0.05 m sphere translating 9 mm (1.15
+                voxels) a frame, so the accumulated motion leaves the K=2
+                window by frame 3; B (the exact T0 and weight warps), E (the 64^3
+                increment level), A (the fine increment) and warp_field3
+                (the composition) must launch; the band-mean x
+                displacement must exceed 0.55 x the accumulated drift,
+                which exceeds K + 1, and the band-mean y stay under 0.25 x
+                it; then the psi_inv mesh getter must run C (the exact
+                cold inverse) and B (the exact warps)
+ 10. fine_window the pyramid phase's keys + FINE_WINDOW=1 (the ini that
+                tools/make_synthetic_scene.py --production writes) at
+                128^3, 4 frames: E, B, A (the K=1 fine increment), F (the
+                composition and the weight) and C (the multigrid inverse,
+                carried half-res) must launch
 The launch counts of each path are zeroed just before it and read just
-after. The last three lines are the kernel report (JSON, launches from the
-pyramid phase), the nvidia-smi line and {"ok": true, "device": {...}}.
+after. The last three lines are the kernel report (JSON; launches summed
+over the paths above that run each kernel), the nvidia-smi line and
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --probe DIR
+
+builds the kernels and runs, instead of the phases, the measurements
+behind PERF.md's compositive and fine_window figures: the compositive
+phase's drift ratio at 128^3 for spheres of 0.2, 0.1 and 0.05 m, with the
+0.2 m sphere also under the exact composition (FUSED_PALLAS=0, the branch
+the CPU tests hold to the JAX package) and over 12 frames; then a staged
+frame (frame 4: each top-level stage timed on its own) and a profiled
+frame (frame 5, torch.profiler) of the compositive and fine_window
+scenes. Writes DIR/probe.json and each profiled frame's key_averages
+table.
 """
 
 from __future__ import annotations
@@ -215,9 +248,43 @@ def check_kernels(torch, kernels, fields, solver):
     log("kernels", f"gd_iteration with energy: {ms_e:.4f} ms (median, 128^3, K=2)")
 
     results["gd_multi"] = check_gd_multi(torch, kernels, fields, solver)
+
+    # F: compose_weight, bitwise (psi0 within 0.95 voxel, the increment
+    # within Kf - 0.05: with Kf=2 psi_new leaves the Kw=2 window)
+    errs = []
+    psi0 = ident + t(rng.uniform(-0.95, 0.95, (3,) + dims))
+    for Kf, Kw in ((1, 2), (2, 2)):
+        g = ident + t(rng.uniform(-(Kf - 0.05), Kf - 0.05, (3,) + dims))
+        got = kernels.compose_weight(psi0, g, wnc, Kf, Kw)
+        ref = kernels.compose_weight_plain(psi0, g, wnc, Kf, Kw)
+        bit = bitwise(got[0], ref[0]) and bitwise(got[1], ref[1])
+        e = max(max_abs(got[0], ref[0]), max_abs(got[1], ref[1]))
+        log("kernels", f"compose_weight Kf={Kf} Kw={Kw}: max|d|={e:.3e} bitwise={bit}")
+        check(bit, "compose_weight is not bit-identical to its plain version")
+        errs.append(e)
+    g1 = ident + t(rng.uniform(-0.95, 0.95, (3,) + dims))
+    ms = cuda_ms(lambda: kernels.compose_weight(psi0, g1, wnc, 1, 2), 50)
+    plain = cuda_ms(lambda: kernels.compose_weight_plain(psi0, g1, wnc, 1, 2), 10)
+    results["compose_weight"] = (max(errs), ms, plain)
+
+    # B on three channels: warp_field3 at K=2 inside and beyond the window
+    errs = []
+    field = ident + t(rng.uniform(-2.0, 2.0, (3,) + dims))
+    for psi in (psi_w, psi_x):
+        got = kernels.warp_field3(field, psi, 2)
+        e = max_abs(got, kernels.warp_field3_plain(field, psi, 2))
+        log("kernels", f"warp_field3 K=2 at {'psi_w' if psi is psi_w else 'psi_x'}: "
+            f"max|d|={e:.3e}")
+        check(e <= 1e-5, "warp_field3 disagrees with its plain version")
+        errs.append(e)
+    ms = cuda_ms(lambda: kernels.warp_field3(field, psi_w, 2), 50)
+    plain = cuda_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2), 10)
+    results["warp_field3"] = (max(errs), ms, plain)
+
+    where = {"gd_multi": "64^3, K=1, 16 iterations", "compose_weight": "128^3, Kf=1, Kw=2"}
     for name, (e, ms, plain) in results.items():
-        where = "64^3, K=1, 16 iterations" if name == "gd_multi" else "128^3, K=2"
-        log("kernels", f"{name}: {ms:.4f} ms kernel, {plain:.4f} ms plain (median, {where})")
+        log("kernels", f"{name}: {ms:.4f} ms kernel, {plain:.4f} ms plain "
+            f"(median, {where.get(name, '128^3, K=2')})")
     return results
 
 
@@ -294,11 +361,15 @@ def check_goldens(torch, fields, solver):
                          device=dev)
     taps = solver.sobolev_filter_1d(7, 0.1)
     psi = fields.identity_field(dims, device=dev)
+    args = (psi, tg, wg, tn, wn, taps, 0.1, 0.3, 32, -1.0)
     for name, K, levels in (("solver_16.npz", None, 1), ("solver_16_window.npz", 2, 1),
-                            ("solver_16_pyramid.npz", 2, 2)):
+                            ("solver_16_pyramid.npz", 2, 2), ("solver_16_compositive.npz", 2, 1)):
         g = np.load(os.path.join(ROOT, "tests", "golden", name))
-        res = solver.estimate_psi_pyramid(psi, tg, wg, tn, wn, taps, 0.1, 0.3, 32, -1.0,
-                                          levels=levels, inverse_iters=8, warp_window=K)
+        if "compositive" in name:
+            res = solver.estimate_psi_compositive(*args, warp_window=K, inverse_iters=8)
+        else:
+            res = solver.estimate_psi_pyramid(*args, levels=levels, inverse_iters=8,
+                                              warp_window=K)
         e = max(
             float(np.abs(res.psi.cpu().numpy() - g["psi"]).max()),
             float(np.abs(res.tsdf_n_psi.cpu().numpy() - g["tnp"]).max()),
@@ -308,23 +379,32 @@ def check_goldens(torch, fields, solver):
         check(e <= 1e-5 and res.iters == 32 * levels, f"{name}: port on the card disagrees")
 
 
-def run_frames(torch, kernels, params, n_frames, phase, expect):
-    """Drive SobFusion on the card over n_frames of a translating sphere in
-    the no-log loop; every kernel named in expect must launch. Each level's
-    solve is timed on its own (a StageClock around solver.estimate_psi; the
-    fine level's time includes its inverse). Returns (launch counts of this
-    path, the SobFusion)."""
+def render_frames(params, n_frames, step, radius):
+    """Depth frames (640x480, in memory) of a sphere of ``radius`` metres,
+    0.8 m in front of the camera, translating ``step`` metres a frame in x."""
+    render = tool("make_synthetic_scene").render_prims_depth
+    intr = params.intr
+    return [
+        render(params.rows, params.cols, intr.fx, intr.fy, intr.cx, intr.cy,
+               [((step * i, 0.0, 0.8), radius)])
+        for i in range(n_frames)
+    ]
+
+
+def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radius=0.2,
+               after=None):
+    """Drive SobFusion on the card over n_frames of a sphere of ``radius``
+    metres translating ``step`` metres a frame in the no-log loop; every
+    kernel named in expect must launch. Each level's solve is timed on its own (a StageClock around
+    solver.estimate_psi; an additive fine level's time includes its
+    inverse, a compositive one's is the increment loop alone). after(i,
+    fusion), if given, runs after each solve frame. Returns (launch counts
+    of this path, the SobFusion)."""
     from sobfu_tpu_torch import mc, solver
     from sobfu_tpu_torch.pipeline import SobFusion
 
-    render = tool("make_synthetic_scene").render_prims_depth
     StageClock = tool("profile_torch_frame").StageClock
-    intr = params.intr
-    H, W = params.rows, params.cols
-    frames = [
-        render(H, W, intr.fx, intr.fy, intr.cx, intr.cy, [((0.006 * i, 0.0, 0.8), 0.2)])
-        for i in range(n_frames)
-    ]
+    frames = render_frames(params, n_frames, step, radius)
     fusion = SobFusion(params, device=DEVICE)
     fusion.need_inv_warps = False  # the no-log frame loop, as the CLI runs it
     torch.cuda.synchronize()
@@ -355,8 +435,10 @@ def run_frames(torch, kernels, params, n_frames, phase, expect):
             phase,
             f"frame {i}: {dt:.4f} s, iters {res.iters} (coarse {res.coarse_iters}, "
             f"fine {fine}), fine level stopped on {why}, final max-norm "
-            f"{res.max_norm:.6e}; {levels} (the last is the fine level, its inverse included)",
+            f"{res.max_norm:.6e}; {levels} (the coarsest first, the fine level last)",
         )
+        if after is not None:
+            after(i, fusion)
     counts = dict(kernels.launch_counts)
     mesh = mc.extract_mesh(
         fusion.phi_global.tsdf, fusion.phi_global.weight,
@@ -377,7 +459,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect):
 
 def run_pyramid(torch, kernels, params, n_frames, phase, expect):
     """A pyramid path: the derived options, the frames, the half-res carry
-    and its full-resolution materialisation."""
+    and its full-resolution materialisation. Returns its launch counts."""
     counts, fusion = run_frames(torch, kernels, params, n_frames, phase, expect)
     s = fusion.solver
     log(phase, f"solver: levels {s.pyramid_levels}, fused {s.fused}, inv_multigrid "
@@ -399,8 +481,194 @@ def run_pyramid(torch, kernels, params, n_frames, phase, expect):
     return counts
 
 
-def main() -> int:
+def drift(torch, fusion, step, n_frames):
+    """The drift measure of tests/test_pipeline.py:497-510 after n_frames
+    frames of ``step`` metres: (band voxels, the accumulated drift in
+    voxels, band-mean x and band-mean y displacement of psi over it), on the
+    band |tsdf| < 0.5 with weight > 0."""
+    from sobfu_tpu_torch import fields
+
+    p = fusion.params
+    total = step * (n_frames - 1) / (p.volume_size[0] / p.volume_dims[0])
+    disp = fields.displacement(fusion.psi.data)
+    band = (torch.abs(fusion.phi_global.tsdf) < 0.5) & (fusion.phi_global.weight > 0)
+    return (int(band.sum()), total, float(disp[0][band].mean()) / total,
+            float(disp[1][band].mean()) / total)
+
+
+def run_compositive(torch, kernels, params, n_frames, step, expect):
+    """The compositive phase: the frames, then the drift check of
+    tests/test_pipeline.py:497-510 — the accumulated motion exceeds K + 1
+    voxels, the band-mean x displacement tracks more than 0.55 of it and
+    the band-mean y stays under 0.25 of it. That bound was set on a sphere
+    6.4 voxels in radius, so the sphere here is 0.05 m (6.4 voxels of 7.8
+    mm); the 0.2 m sphere of the other phases (25.6 voxels) lags further
+    behind its drift under the stall stop, as the JAX package's does
+    (PERF.md §6, ``--probe``). Then the psi_inv mesh getter: the no-log
+    loop keeps no inverse, so it computes the exact cold one (C) and the
+    exact warps (B). Returns the launch counts of the frames and the
+    getter."""
+    counts, fusion = run_frames(torch, kernels, params, n_frames, "compositive", expect, step,
+                                radius=0.05)
+    s = fusion.solver
+    log("compositive", f"solver: mode {s.mode}, levels {s.pyramid_levels}, fused {s.fused}, "
+        f"warp_window {s.warp_window}, incremental_inverse {s.incremental_inverse}")
+    check(s.mode == "compositive" and s.pyramid_levels == 2 and s.fused,
+          "compositive: the solver did not derive the compositive options")
+    n_band, total, rx, ry = drift(torch, fusion, step, n_frames)
+    log("compositive", f"band of {n_band} voxels: mean dx / drift {rx:.4f}, mean dy / drift "
+        f"{ry:.4f}; accumulated drift {total:.4f} voxels (K + 1 = {s.warp_window + 1})")
+    check(n_band > 100 and total > s.warp_window + 1, "compositive: the drift is too small")
+    check(rx > 0.55, "compositive: psi does not track the accumulated drift")
+    check(abs(ry) < 0.25, "compositive: psi drifts sideways")
+
+    kernels.reset_launch_counts()
+    mesh = fusion.get_phi_global_psi_inv_mesh()
+    torch.cuda.synchronize()
+    refresh = dict(kernels.launch_counts)
+    dims = (3,) + fusion.phi_global.dims_zyx
+    inv = fusion.psi_inv.data
+    log("compositive", f"psi_inv getter: launch counts {refresh}; psi_inv "
+        f"{tuple(inv.shape[1:])}; phi_global o psi_inv mesh {mesh.n_triangles} triangles")
+    check(tuple(inv.shape) == dims and bool(torch.isfinite(inv).all()),
+          "compositive: the getter's psi_inv")
+    check(mesh.n_triangles > 0, "compositive: empty psi_inv mesh")
+    check(refresh["inverse_fixed_point"] > 0 and refresh["warp"] > 0,
+          "compositive: the getter did not run C and B")
+    return {k: counts[k] + refresh[k] for k in counts}
+
+
+def top_level_clock(*targets):
+    """A StageClock that times only the calls not nested in another timed
+    call, so that its stages add up to at most the frame."""
+
+    class TopLevelClock(tool("profile_torch_frame").StageClock):
+        depth = 0
+
+        def _timed(self, name, fn):
+            run = super()._timed(name, fn)
+
+            def call(*args, **kw):
+                if self.depth:
+                    return fn(*args, **kw)
+                self.depth += 1
+                try:
+                    return run(*args, **kw)
+                finally:
+                    self.depth -= 1
+
+            return call
+
+    return TopLevelClock(*targets)
+
+
+def profile_cell(torch, params, step, radius, name, out):
+    """Frames 0-3 of the scene warm up; frame 4 runs staged (each top-level
+    stage timed on its own), frame 5 under torch.profiler. Returns the
+    summary and writes the key_averages table under out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sobfu_tpu_torch import pipeline, pyramid, solver
+    from sobfu_tpu_torch.ops import kernels
+
+    device_us = tool("profile_torch_frame")._device_us
+    frames = render_frames(params, 6, step, radius)
+    fusion = pipeline.SobFusion(params, device=DEVICE)
+    fusion.need_inv_warps = False
+    for depth in frames[:4]:
+        fusion(depth)
+    torch.cuda.synchronize()
+    targets = ((pipeline, "preprocess"), (pipeline, "integrate_dists"),
+               (solver, "estimate_psi"), (kernels, "warp"), (kernels, "warp_field3"),
+               (kernels, "compose_weight"), (pyramid, "estimate_inverse_multigrid"))
+    with top_level_clock(*targets) as clock:
+        t0 = time.perf_counter()
+        fusion(frames[4])
+        torch.cuda.synchronize()
+        staged = time.perf_counter() - t0
+    stages = [{"stage": stage, "dims": list(shape[-3:]), "ms": 1e3 * sec,
+               "iters": getattr(res, "iters", None)} for stage, shape, res, sec in clock.calls]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fusion(frames[5])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    per_kernel = {e.key: (device_us(e), e.count) for e in ka
+                  if device_us(e) > 0 and "CUDA" in str(getattr(e, "device_type", ""))}
+    busy = sum(us for us, _ in per_kernel.values()) * 1e-6
+    with open(os.path.join(out, f"{name}_key_averages.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40))
+    summary = {
+        "staged_frame_ms": 1e3 * staged,
+        "stages": stages,
+        "rest_ms": 1e3 * (staged - sum(sec for *_, sec in clock.calls)),
+        "profiled_frame": {
+            "wall_ms": 1e3 * wall, "device_ms": 1e3 * busy, "busy_share": busy / wall,
+            "iters": fusion.last_solve.iters, "coarse_iters": fusion.last_solve.coarse_iters,
+            "kernels": {k: {"device_ms": us / 1e3, "calls": n}
+                        for k, (us, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])},
+        },
+    }
+    log("probe", f"{name}: staged frame 4 {1e3 * staged:.4f} ms; "
+        + "; ".join(f"{r['stage']} {r['dims']} {r['ms']:.4f} ms" for r in stages)
+        + f"; profiled frame 5: {1e3 * wall:.4f} ms wall, {1e3 * busy:.4f} ms device, "
+        f"busy {100 * busy / wall:.1f}%")
+    return summary
+
+
+def compositive_params(ini):
+    """The compositive phase's keys: the umbrella ini + the drift keys of
+    bench.py's compositive cell."""
+    from sobfu_tpu_torch.config import load_params
+
+    params = load_params(ini)
+    params.solver_mode, params.warp_window, params.momentum = "compositive", 2, 0.9
+    params.alpha, params.pyramid_levels, params.max_iter = 0.05, 2, 1024
+    params.max_update_norm, params.stall_window, params.stall_rel = 4e-3, 16, 1e-2
+    return params
+
+
+def probe(torch, kernels, ini, out):
+    """--probe: the drift witness at 128^3 and the profiles of the
+    compositive and fine_window scenes (module docstring)."""
+    os.makedirs(out, exist_ok=True)
+    step = 0.009
+    result = {"drift": {}, "profile": {}}
+    for label, radius, fused, n_frames in (
+        ("0.2 m", 0.2, True, 6), ("0.2 m, exact composition", 0.2, False, 6),
+        ("0.1 m", 0.1, True, 6), ("0.05 m", 0.05, True, 6), ("0.2 m, 12 frames", 0.2, True, 12),
+    ):
+        params = compositive_params(ini)
+        params.fused_pallas = fused
+        ratios = []
+
+        def after(i, fusion, ratios=ratios):
+            ratios.append(drift(torch, fusion, step, i + 1)[2:])
+
+        run_frames(torch, kernels, params, n_frames, f"probe {label}", (), step, radius, after)
+        result["drift"][label] = [{"frame": i + 1, "dx": rx, "dy": ry}
+                                  for i, (rx, ry) in enumerate(ratios)]
+        log("probe", f"drift, sphere {label}: mean dx / drift by frame "
+            + ", ".join(f"{rx:.4f}" for rx, _ in ratios) + f"; mean dy / drift {ratios[-1][1]:.4f}")
+    result["profile"]["compositive"] = profile_cell(
+        torch, compositive_params(ini), step, 0.05, "compositive", out)
+    params = tool("profile_torch_frame").production_params(ini, DIM, 2)
+    params.fine_window = 1
+    result["profile"]["fine_window"] = profile_cell(torch, params, 0.006, 0.2, "fine_window", out)
+    with open(os.path.join(out, "probe.json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of sobfu_tpu_torch on one CUDA card")
+    ap.add_argument("--probe", metavar="DIR",
+                    help="run the drift witness and the compositive profiles instead")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
@@ -423,24 +691,37 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
 
+    ini = os.path.join(ROOT, "params", "params_umbrella.ini")
+    if args.probe:
+        probe(torch, kernels, ini, args.probe)
+        return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
 
     path_kernels = ("gd_iteration", "warp", "inverse_fixed_point", "warp_fuse")
-    ini = os.path.join(ROOT, "params", "params_umbrella.ini")
+    pyramid_kernels = path_kernels + ("gd_multi",)
     params = load_params(ini)
     params.warp_window = 2
-    run_frames(torch, kernels, params, 4, "main", path_kernels)
+    runs = [run_frames(torch, kernels, params, 4, "main", path_kernels)[0],
+            run_frames(torch, kernels, load_params(ini), 2, "shipped", path_kernels)[0]]
 
-    run_frames(torch, kernels, load_params(ini), 2, "shipped", path_kernels)
-
-    all_kernels = tuple(kernels.launch_counts)
     production_params = tool("profile_torch_frame").production_params
-    counts = run_pyramid(torch, kernels, production_params(ini, DIM, 2), 4, "pyramid",
-                         all_kernels)
-    run_pyramid(torch, kernels, production_params(ini, 2 * DIM, 3), 2, "pyramid256",
-                all_kernels)
+    runs.append(run_pyramid(torch, kernels, production_params(ini, DIM, 2), 4, "pyramid",
+                            pyramid_kernels))
+    runs.append(run_pyramid(torch, kernels, production_params(ini, 2 * DIM, 3), 2,
+                            "pyramid256", pyramid_kernels))
+
+    runs.append(run_compositive(torch, kernels, compositive_params(ini), 6, 0.009,
+                                ("warp", "gd_multi", "gd_iteration", "warp_field3")))
+
+    params = production_params(ini, DIM, 2)
+    params.fine_window = 1
+    runs.append(run_pyramid(torch, kernels, params, 4, "fine_window",
+                            ("gd_multi", "warp", "gd_iteration", "compose_weight",
+                             "inverse_fixed_point")))
     torch.cuda.synchronize()
+    all_kernels = tuple(kernels.launch_counts)
+    launches = {name: sum(c[name] for c in runs) for name in all_kernels}
 
     report = {"kernels": [
         {
@@ -448,7 +729,7 @@ def main() -> int:
             "route": "cuda",
             "source": kernels.KERNELS[name][0],
             "replaces": kernels.KERNELS[name][1],
-            "launches": counts[name],
+            "launches": launches[name],
             "max_abs_err": results[name][0],
             "ms": results[name][1],
             "plain_ms": results[name][2],

@@ -50,6 +50,7 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _P,
     ),
+    "sobfu_compose_weight": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

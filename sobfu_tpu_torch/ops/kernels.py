@@ -1,4 +1,4 @@
-"""The five CUDA kernels of the main path and their plain torch versions.
+"""The CUDA kernels of the frame loop and their plain torch versions.
 
 ==================  ==========================================  =============
 wrapper             replaces (sobfu_tpu/ops/pallas_kernels.py)  source
@@ -11,6 +11,9 @@ inverse_fixed_point estimate_inverse_window_pallas_multi :3061  csrc/inverse.cu
 (C)                 (+ estimate_inverse_window_pallas :1883)
 warp_fuse (D)       window_warp_fuse_pallas :607                csrc/warp_fuse.cu
 gd_multi (E)        fused_gd_multi_fold :2805                   csrc/gd_multi.cu
+compose_weight (F)  compose_weight_pallas :3223                 csrc/compose_weight.cu
+warp_field3 (B,     window_warp_field3_pallas :3309             csrc/warp.cu
+C=3)
 ==================  ==========================================  =============
 
 Each wrapper takes the JAX package's layouts and a window half-width ``K``
@@ -32,6 +35,7 @@ from sobfu_tpu_torch.tsdf import fuse_volumes
 
 launch_counts = {
     "gd_iteration": 0, "warp": 0, "inverse_fixed_point": 0, "warp_fuse": 0, "gd_multi": 0,
+    "compose_weight": 0, "warp_field3": 0,
 }
 
 # what each kernel replaces and where its source lives (chip_smoke.py reports it)
@@ -53,6 +57,11 @@ KERNELS = {
         "sobfu_tpu_torch/csrc/gd_multi.cu",
         "sobfu_tpu/ops/pallas_kernels.py:2805",
     ),
+    "compose_weight": (
+        "sobfu_tpu_torch/csrc/compose_weight.cu",
+        "sobfu_tpu/ops/pallas_kernels.py:3223",
+    ),
+    "warp_field3": ("sobfu_tpu_torch/csrc/warp.cu", "sobfu_tpu/ops/pallas_kernels.py:3309"),
 }
 
 # voxels per tile of the kernels' reductions (csrc/sampling.cuh kBlock)
@@ -134,13 +143,8 @@ def warp_plain(vol, psi, K: Optional[int], floor: Sequence[bool]):
     return torch.stack(outs, dim=0)
 
 
-def warp(vol, psi, K: Optional[int], floor: Sequence[bool]):
-    """Kernel B: warp the C channels of vol f32[C,Z,Y,X] at psi."""
+def _launch_warp(kernel: str, vol, psi, K: Optional[int], floor: Sequence[bool]):
     C = vol.shape[0]
-    if len(floor) != C:
-        raise ValueError(f"floor has {len(floor)} entries for {C} channels")
-    if _on_cpu(vol):
-        return warp_plain(vol, psi, K, floor)
     if C > 32:
         raise ValueError("warp takes at most 32 channels")
     Z, Y, X = vol.shape[1:]
@@ -148,13 +152,76 @@ def warp(vol, psi, K: Optional[int], floor: Sequence[bool]):
     out = torch.empty_like(vol)
     mask = sum(1 << c for c in range(C) if floor[c])
     _launch(
-        "warp", "sobfu_warp", dev,
+        kernel, "sobfu_warp", dev,
         _check("vol", vol, (C, Z, Y, X), dev), C,
         _check("psi", psi, (3, Z, Y, X), dev),
         _check("out", out, (C, Z, Y, X), dev),
         Z, Y, X, _K(K), mask,
     )
     return out
+
+
+def warp(vol, psi, K: Optional[int], floor: Sequence[bool]):
+    """Kernel B: warp the C channels of vol f32[C,Z,Y,X] at psi."""
+    C = vol.shape[0]
+    if len(floor) != C:
+        raise ValueError(f"floor has {len(floor)} entries for {C} channels")
+    if _on_cpu(vol):
+        return warp_plain(vol, psi, K, floor)
+    return _launch_warp("warp", vol, psi, K, floor)
+
+
+def warp_field3_plain(field, pos, K: Optional[int]):
+    if K is None:
+        return fields.sample_field_trilinear(field, pos)
+    return fields.sample_trilinear_window(field, pos, K)
+
+
+def warp_field3(field, pos, K: Optional[int]):
+    """Kernel B with C=3 trilinear channels: the 3-channel field f32[3,Z,Y,X]
+    sampled at pos, the taps computed once for all three (the compositive
+    composition psi0 o (id + delta)). K None = the exact sampler. Counted
+    under its own name, apart from :func:`warp`."""
+    if field.shape[0] != 3:
+        raise ValueError(f"warp_field3 samples a 3-channel field, got {field.shape[0]}")
+    if _on_cpu(field):
+        return warp_field3_plain(field, pos, K)
+    return _launch_warp("warp_field3", field, pos, K, (False,) * 3)
+
+
+# ---------------------------------------------------------------------------
+# F: composition + weight floor sample
+# ---------------------------------------------------------------------------
+
+
+def compose_weight_plain(field, pos, weight, Kf: int, Kw: int):
+    psi_new = fields.sample_trilinear_window(field, pos, Kf)
+    return psi_new, fields.sample_nearest_floor_window(weight, psi_new, Kw)
+
+
+def compose_weight(field, pos, weight, Kf: int, Kw: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel F: psi_new = field o pos in the window Kf (field f32[3,Z,Y,X]
+    is psi0, pos the absolute g = id + delta) and weight f32[Z,Y,X]
+    floor-sampled at psi_new in the window Kw; returns (psi_new, weight at
+    psi_new), both equal bit for bit to the plain version."""
+    if Kf is None or Kw is None:
+        raise ValueError("compose_weight samples in windows: Kf and Kw must be set")
+    if _on_cpu(field):
+        return compose_weight_plain(field, pos, weight, Kf, Kw)
+    Z, Y, X = field.shape[1:]
+    dev = field.device
+    out = torch.empty_like(field)
+    wout = torch.empty_like(weight)
+    _launch(
+        "compose_weight", "sobfu_compose_weight", dev,
+        _check("field", field, (3, Z, Y, X), dev),
+        _check("pos", pos, (3, Z, Y, X), dev),
+        _check("weight", weight, (Z, Y, X), dev),
+        _check("out", out, (3, Z, Y, X), dev),
+        _check("weight_out", wout, (Z, Y, X), dev),
+        Z, Y, X, _K(Kf), _K(Kw),
+    )
+    return out, wout
 
 
 # ---------------------------------------------------------------------------

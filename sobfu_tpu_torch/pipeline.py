@@ -48,14 +48,15 @@ def fused_frame_step(
     skip_inv_warps: bool = False,
     skip_weight_warp: bool = False,
 ):
-    """One complete non-rigid frame (``sobfu_tpu.pipeline.fused_frame_step``,
-    additive): preprocess -> integrate phi_n -> solve (the pyramid when
-    PYRAMID_LEVELS > 1) -> fuse.
+    """One complete non-rigid frame (``sobfu_tpu.pipeline.fused_frame_step``):
+    preprocess -> integrate phi_n -> solve (Solver.solve: the compositive
+    mode, the pyramid when PYRAMID_LEVELS > 1, else one level) -> fuse.
 
-    skip_weight_warp: the solve returns weight_n unwarped and the fuse runs
-    as the warp_fuse kernel, which floor-warps it at psi itself (the no-log
-    loop). The port applies the exact rule when no window is set. With
-    skip_inv_warps, Solver.inv_coarse carries psi_inv at half resolution.
+    skip_weight_warp: the additive solve returns weight_n unwarped and the
+    fuse runs as the warp_fuse kernel, which floor-warps it at psi itself
+    (the no-log loop). The port applies the exact rule when no window is
+    set. With skip_inv_warps, Solver.inv_coarse carries psi_inv at half
+    resolution; in compositive mode skip_inv_warps also skips the inverse.
 
     Returns (tsdf_g', weight_g', tsdf_n, weight_n, SolveResult).
     """
@@ -135,8 +136,22 @@ class SobFusion:
             and s.inverse_warm
             and not self.need_inv_warps
             and p.verbosity == 0
+            and s.mode == "additive"
             and s.pyramid_levels > 1
             and all(d % 2 == 0 for d in p.volume_dims)
+        )
+
+    def _skip_weight_warp(self) -> bool:
+        """True when the no-log frame step leaves weight_n's floor warp to
+        the fuse: the additive mode only (sobfu_tpu/pipeline.py:390-397).
+        A compositive fine level (FINE_WINDOW with a pyramid) returns the
+        weight already floor-warped by kernel F, so the port fuses with it
+        instead of warping it a second time as JAX does."""
+        s = self.solver
+        return bool(
+            not self.need_inv_warps
+            and s.mode == "additive"
+            and not (s.pyramid_levels > 1 and s.fine_window is not None)
         )
 
     def _depth_tensor(self, depth) -> torch.Tensor:
@@ -178,13 +193,13 @@ class SobFusion:
             self.frame_counter += 1
             return True
 
-        psi_inv0 = self.psi_inv.data if self.solver.inverse_warm else None
+        psi_inv0 = self.psi_inv.data if self.solver.takes_psi_inv0 else None
         if p.verbosity == 0:
             vol2cam = (
                 np.linalg.inv(np.asarray(self.poses[-1], np.float32))
                 @ self.phi_global.pose
             )
-            skip_weight_warp = not self.need_inv_warps
+            skip_weight_warp = self._skip_weight_warp()
             tg2, wg2, tn, wn, res = fused_frame_step(
                 depth, self.phi_global, self.psi.data, self.solver, vol2cam, psi_inv0,
                 skip_inv_warps=not self.need_inv_warps,
@@ -253,11 +268,19 @@ class SobFusion:
 
     def _refresh_inv_warps(self):
         """Recompute phi_global o psi_inv on demand (skipped in the frame
-        step when no per-frame consumer exists — see need_inv_warps)."""
-        both = kernels.warp(
-            torch.stack([self.phi_global.tsdf, self.phi_global.weight]),
-            self.full_res_inverse(), self.solver.warp_window, (False, True),
-        )
+        step when no per-frame consumer exists — see need_inv_warps).
+
+        Compositive mode: the no-log loop keeps no inverse and psi may have
+        drifted past any window, so psi_inv becomes the exact cold 48-step
+        inverse and the warps are exact (sobfu_tpu/pipeline.py:529-542)."""
+        stack = torch.stack([self.phi_global.tsdf, self.phi_global.weight])
+        if self.solver.mode == "compositive":
+            self.psi_inv.data = kernels.inverse_fixed_point(self.psi.data, 48, None)
+            both = kernels.warp(stack, self.psi_inv.data, None, (False, True))
+        else:
+            both = kernels.warp(
+                stack, self.full_res_inverse(), self.solver.warp_window, (False, True)
+            )
         self.phi_global_psi_inv.tsdf, self.phi_global_psi_inv.weight = both[0], both[1]
         self._inv_warps_stale = False
 

@@ -1,4 +1,5 @@
-"""Sobolev-gradient warp-field solver (additive mode, with the pyramid).
+"""Sobolev-gradient warp-field solver (additive and compositive modes, with
+the pyramid).
 
 PyTorch counterpart of ``sobfu_tpu.solver``. Per iteration
 (reference solver.cu:114-193):
@@ -16,7 +17,10 @@ versions. torch has no on-device while_loop: the stop test reads the max
 norm on the host after every iteration (every chunk of kernel E), which
 keeps JAX's stopping semantics (the same ``iters``). The coarse-to-fine
 pyramid (:func:`estimate_psi_pyramid`) warm-starts the fine solve from
-2x-downsampled levels (helpers in :mod:`sobfu_tpu_torch.pyramid`).
+2x-downsampled levels (helpers in :mod:`sobfu_tpu_torch.pyramid`). The
+compositive mode (:func:`estimate_psi_compositive`) solves each frame's
+increment on top of the accumulated field and composes the two (kernel F,
+or kernel B on three channels).
 """
 
 from __future__ import annotations
@@ -317,9 +321,6 @@ COARSE_INNER_STEPS = 16
 # level L stops at max_update_norm * COARSE_THRESH_SCALE**L (sobfu_tpu/solver.py:1016-1018)
 COARSE_THRESH_SCALE = 0.5
 
-# keys the port does not run yet, with the ROADMAP item that brings them
-_NOT_PORTED = "not ported to sobfu_tpu_torch yet (ROADMAP.md, {})"
-
 
 def runs_gd_multi(dims_zyx, fused: bool) -> bool:
     """Where the JAX package runs ``fused_gd_multi_fold`` on a level: the
@@ -358,52 +359,91 @@ def estimate_psi_pyramid(
     inv_coarse: bool = False,
 ) -> SolveResult:
     """Coarse-to-fine wrapper around :func:`estimate_psi`
-    (``sobfu_tpu.solver.estimate_psi_pyramid``, additive fine level).
+    (``sobfu_tpu.solver.estimate_psi_pyramid``).
 
-    Level L runs on 2^L-downsampled TSDFs (the weights are never read by
-    the loop, so only the TSDFs are pooled). The incoming displacement is
-    downsampled to the coarsest level; each level's result is upsampled
-    with its displacement doubled to warm-start the next. Coarse levels stop
-    at ``thresh * 0.5^L`` or after max_iter, with the metric-scaled window
-    K_c = ceil(K / 2^L), no stall detector and no tails; only the fine level
-    runs the inverse and the tail warps. ``iters`` counts every level's
-    iterations (``coarse_iters`` the coarse share).
+    The coarse levels (:func:`_coarse_levels`) warm-start the fine level
+    from the incoming displacement; only the fine level runs the inverse
+    and the tail warps. ``iters`` counts every level's iterations
+    (``coarse_iters`` the coarse share).
 
     fused: the accelerator dispatch (``Solver.fused``; JAX's fused_db). A
     coarse level where JAX would run ``fused_gd_multi_fold``
     (:func:`runs_gd_multi`) runs kernel E in chunks of 16 iterations with
     the chunked stop; every other level runs kernel A.
 
-    fine_window (a compositive fine level) is not ported yet.
+    fine_window: run the fine level as a compositive increment solve
+    (:func:`estimate_psi_compositive`) in that window, with the tails, the
+    T0 warp and the inverse bounded by ``warp_window`` (its total_window);
+    skip_weight_warp does not apply there: kernel F returns the weight
+    floor-warped.
     """
-    from sobfu_tpu_torch import pyramid
-
     if levels < 1:
         raise ValueError(f"levels must be >= 1, got {levels}")
     if inv_coarse and not inv_multigrid:
         raise ValueError("inv_coarse rides the multigrid inverse")
+    ident_f = fields.identity_field(tuple(tsdf_n.shape), device=psi.device)
+    disp, total_coarse = _coarse_levels(
+        tsdf_global, tsdf_n, psi - ident_f, levels, taps, alpha, w_reg, max_iter,
+        max_update_norm_thresh, warp_window=warp_window, momentum=momentum, fused=fused,
+    )
+    fine = dict(
+        record_energy=record_energy,
+        energy_cap=energy_cap,
+        inverse_iters=inverse_iters,
+        momentum=momentum,
+        stall_window=stall_window,
+        stall_rel=stall_rel,
+        skip_inv_warps=skip_inv_warps,
+        inv_multigrid=inv_multigrid,
+        inv_coarse=inv_coarse,
+    )
+    args = (ident_f + disp, tsdf_global, weight_global, tsdf_n, weight_n, taps, alpha, w_reg,
+            max_iter, max_update_norm_thresh, psi_inv0)
     if fine_window is not None:
-        raise NotImplementedError(
-            "FINE_WINDOW (a compositive fine level) " + _NOT_PORTED.format("Next, item 2")
+        res = estimate_psi_compositive(
+            *args, warp_window=fine_window, total_window=warp_window or 2, fused=fused, **fine
         )
-    dev = psi.device
-    dims = tuple(tsdf_n.shape)
-    ident_f = fields.identity_field(dims, device=dev)
+    else:
+        res = estimate_psi(
+            *args, warp_window=warp_window, skip_weight_warp=skip_weight_warp, **fine
+        )
+    return res._replace(iters=res.iters + total_coarse, coarse_iters=total_coarse)
 
-    pyr = [(tsdf_global, tsdf_n)]
+
+def _coarse_levels(tsdf_global, live, disp, levels, taps, alpha, w_reg, max_iter,
+                   max_update_norm_thresh, *, warp_window, momentum, fused):
+    """The coarse levels of a pyramid: those of :func:`estimate_psi_pyramid`
+    and the increment pyramid of :func:`estimate_psi_compositive`
+    (sobfu_tpu/solver.py:1000-1065, 1705-1743).
+
+    Level L runs on 2^L-downsampled TSDFs (the weights are never read by
+    the loop, so only the TSDFs are pooled). disp, the incoming
+    displacement at full resolution, is downsampled to the coarsest level
+    (None: zero there); each level's result is upsampled with its
+    displacement doubled to warm-start the next. A level stops at
+    ``thresh * 0.5^L`` or after max_iter, with the metric-scaled window
+    K_c = ceil(K / 2^L), no stall detector and no tails; where JAX would
+    run ``fused_gd_multi_fold`` (:func:`runs_gd_multi`) it runs kernel E in
+    chunks of 16 iterations. Returns (the full-resolution displacement that
+    warm-starts the fine level, the coarse levels' iterations).
+    """
+    from sobfu_tpu_torch import pyramid
+
+    pyr = [(tsdf_global, live)]
     for _ in range(levels - 1):
         tg_c, tn_c = pyr[-1]
         pyr.append((pyramid.downsample2(tg_c), pyramid.downsample2(tn_c)))
+    dims_top = tuple(pyr[-1][0].shape)
+    if disp is None:
+        disp = torch.zeros((3,) + dims_top, dtype=torch.float32, device=live.device)
+    elif levels > 1:
+        disp = pyramid.resample_disp(disp, dims_top, 0.5 ** (levels - 1))
 
-    disp = psi - ident_f
-    if levels > 1:
-        disp = pyramid.resample_disp(disp, pyr[-1][0].shape, 0.5 ** (levels - 1))
-
-    total_coarse = 0
+    total = 0
     for lev in range(levels - 1, 0, -1):
         tg_c, tn_c = pyr[lev]
         dims_c = tuple(tn_c.shape)
-        ident_c = fields.identity_field(dims_c, device=dev)
+        ident_c = fields.identity_field(dims_c, device=live.device)
         thresh_c = float(
             np.float32(max_update_norm_thresh) * np.float32(COARSE_THRESH_SCALE ** lev)
         )
@@ -418,25 +458,155 @@ def estimate_psi_pyramid(
             # early (sobfu_tpu/solver.py:1055-1059)
             stall_window=0,
         )
-        total_coarse += res_c.iters
+        total += res_c.iters
         disp = pyramid.resample_disp(res_c.psi - ident_c, pyr[lev - 1][0].shape, 2.0)
+    return disp, total
 
-    res = estimate_psi(
-        ident_f + disp, tsdf_global, weight_global, tsdf_n, weight_n, taps, alpha, w_reg,
-        max_iter, max_update_norm_thresh, psi_inv0,
+
+# ---------------------------------------------------------------------------
+# compositive mode
+# ---------------------------------------------------------------------------
+
+# the incremental inverse: window steps on the increment, then exact
+# anchoring steps on the composed field (sobfu_tpu/solver.py:1498-1499)
+INV_WINDOW_ITERS = 16
+INV_REFINE_ITERS = 2
+
+
+def estimate_psi_compositive(
+    psi0: torch.Tensor,
+    tsdf_global: torch.Tensor,
+    weight_global: torch.Tensor,
+    tsdf_n: torch.Tensor,
+    weight_n: torch.Tensor,
+    taps,
+    alpha: float,
+    w_reg: float,
+    max_iter: int,
+    max_update_norm_thresh: float,
+    psi_inv0: Optional[torch.Tensor] = None,
+    *,
+    inverse_iters: int = 48,
+    warp_window: int = 2,
+    record_energy: bool = False,
+    energy_cap: int = 0,
+    momentum: Optional[float] = None,
+    fused: bool = False,
+    total_window: int = 0,
+    stall_window: int = 0,
+    stall_rel: float = 1e-3,
+    skip_inv_warps: bool = False,
+    inv_multigrid: bool = False,
+    inner_steps: int = 0,
+    inv_coarse: bool = False,
+    pyramid_levels: int = 1,
+) -> SolveResult:
+    """Compositive-update solve (``sobfu_tpu.solver.estimate_psi_compositive``):
+    psi = psi0 o (id + delta), so each iteration samples the pre-warped live
+    volume T0 = phi_n o psi0 at id + delta, and only this frame's increment
+    delta has to stay inside the window K = warp_window, however far psi0
+    has drifted.
+
+    The increment loop is :func:`estimate_psi` with ``skip_tails`` on the
+    absolute state id + delta against live = T0: its Laplacian of
+    id + delta is L(delta) up to the rounding of coordinates (an ulp of the
+    largest coordinate per iteration), and kernel A or E runs it unchanged.
+    The energy rows keep the increment convention (the regulariser of
+    delta). pyramid_levels > 1: the increment pyramid, coarse levels from
+    ZERO displacement against T0 downsampled (:func:`_coarse_levels`), the
+    fine loop seeded from id + their displacement.
+
+    total_window: the total deformation is known to stay within it (the
+    fine level of a pyramid): T0 is sampled in that window, kernel F
+    composes psi_new = psi0 o g in the window K and floor-samples weight_n
+    at psi_new in the total window, the inverse runs in the total window
+    (the multigrid one when inv_multigrid and fused on even dims; inv_coarse
+    returns it half-res) from psi_inv0, and the tails sample in the total
+    window. 0: T0 and the weight are exact samples, the composition is the
+    window-K field sample (kernel B, C=3) when fused and the exact one
+    otherwise, the inverse is incremental from psi_inv0 (C on the increment
+    in the window K, one exact sample of its displacement at psi_inv0,
+    INV_REFINE_ITERS exact anchoring steps) or cold and exact without it,
+    and the tails are exact; skip_inv_warps skips the inverse too (JAX's
+    skip_inverse, which the frame loop always sets with it): psi_inv passes
+    through as psi_inv0 (psi0 without it).
+    """
+    from sobfu_tpu_torch import pyramid
+
+    if inv_coarse and not (inv_multigrid and skip_inv_warps and fused):
+        raise ValueError(
+            "inv_coarse carries a warm-start-only multigrid inverse: needs inv_multigrid, "
+            "skip_inv_warps and fused"
+        )
+    dims = tuple(tsdf_n.shape)
+    ident = fields.identity_field(dims, device=psi0.device)
+    K = int(warp_window)
+    t0 = kernels.warp(tsdf_n[None], psi0, total_window or None, (False,))[0]
+    g0, total_coarse = ident, 0
+    if pyramid_levels > 1:
+        disp, total_coarse = _coarse_levels(
+            tsdf_global, t0, None, pyramid_levels, taps, alpha, w_reg, max_iter,
+            max_update_norm_thresh, warp_window=K, momentum=momentum, fused=fused,
+        )
+        g0 = ident + disp
+    # the loop's first warp seeds tnp: B at K on T0 (T0 itself at the identity)
+    loop = estimate_psi(
+        g0, tsdf_global, weight_global, t0, weight_n, taps, alpha, w_reg, max_iter,
+        max_update_norm_thresh,
         record_energy=record_energy,
         energy_cap=energy_cap,
-        inverse_iters=inverse_iters,
-        warp_window=warp_window,
+        warp_window=K,
         momentum=momentum,
         stall_window=stall_window,
         stall_rel=stall_rel,
-        skip_inv_warps=skip_inv_warps,
-        skip_weight_warp=skip_weight_warp,
-        inv_multigrid=inv_multigrid,
-        inv_coarse=inv_coarse,
+        skip_tails=True,
+        inner_steps=inner_steps if runs_gd_multi(dims, fused) else 0,
     )
-    return res._replace(iters=res.iters + total_coarse, coarse_iters=total_coarse)
+    g = loop.psi  # the absolute id + delta
+
+    def tails(psi_inv, K_tail):
+        both = kernels.warp(torch.stack([tsdf_global, weight_global]), psi_inv, K_tail,
+                            (False, True))
+        return both[0], both[1]
+
+    tails_skipped = (tsdf_global, weight_global)
+    if total_window:
+        psi_new, weight_n_psi = kernels.compose_weight(psi0, g, weight_n, K, total_window)
+        if inv_multigrid and fused and all(d % 2 == 0 for d in dims):
+            psi_inv = pyramid.estimate_inverse_multigrid(
+                psi_new, inverse_iters, total_window, init=psi_inv0,
+                fine_iters=0 if skip_inv_warps else 1, return_coarse=inv_coarse,
+            )
+        else:
+            psi_inv = kernels.inverse_fixed_point(psi_new, inverse_iters, total_window,
+                                                  init=psi_inv0)
+        g_inv = tails_skipped if skip_inv_warps else tails(psi_inv, total_window)
+    else:
+        psi_new = kernels.warp_field3(psi0, g, K if fused else None)
+        if skip_inv_warps:
+            psi_inv = psi_inv0 if psi_inv0 is not None else psi0
+        elif psi_inv0 is None:
+            psi_inv = kernels.inverse_fixed_point(psi_new, inverse_iters, None)
+        else:
+            # psi_new^-1 = g^-1 o psi0^-1: g is window-bounded, so its inverse
+            # runs in the window; dq = id - g^-1 is sampled at psi_inv0
+            dq = ident - kernels.inverse_fixed_point(g, INV_WINDOW_ITERS, K)
+            inv = psi_inv0 - kernels.warp_field3(dq, psi_inv0, None)
+            psi_inv = kernels.inverse_fixed_point(psi_new, INV_REFINE_ITERS, None, init=inv)
+        g_inv = tails_skipped if skip_inv_warps else tails(psi_inv, None)
+        weight_n_psi = kernels.warp(weight_n[None], psi_new, None, (True,))[0]
+    return SolveResult(
+        psi=psi_new,
+        psi_inv=psi_inv,
+        tsdf_n_psi=loop.tsdf_n_psi,
+        weight_n_psi=weight_n_psi,
+        tsdf_global_psi_inv=g_inv[0],
+        weight_global_psi_inv=g_inv[1],
+        iters=loop.iters + total_coarse,
+        max_norm=loop.max_norm,
+        energy=loop.energy,
+        coarse_iters=total_coarse,
+    )
 
 
 def production_pyramid_kwargs(dim: int, *, warm: bool = True, no_log: bool = True) -> dict:
@@ -486,9 +656,10 @@ class Solver:
     and STALL_WINDOW multiples of it), INV_COARSE (an attribute, no .ini
     key: on with INV_MULTIGRID and fused) and INVERSE_ITERS. Tests that
     compare with JAX on the CPU pass FUSED_PALLAS explicitly to both.
-    SOLVER_MODE=compositive and FINE_WINDOW with a pyramid raise. USE_PALLAS,
-    WARP_PALLAS, Z_CHUNKS, CONV_MXU and FOLD_XMATS select TPU layouts and
-    have no effect here.
+    SOLVER_MODE (``mode``), INCREMENTAL_INV (``incremental_inverse``, None =
+    on) and FINE_WINDOW are read as JAX reads them. USE_PALLAS, WARP_PALLAS,
+    Z_CHUNKS, CONV_MXU and FOLD_XMATS select TPU layouts and have no effect
+    here.
     """
 
     def __init__(self, params: Params):
@@ -496,10 +667,10 @@ class Solver:
         self.taps = sobolev_filter_1d(params.s, params.lambda_)
         self.verbosity = params.verbosity
         self.mode = getattr(params, "solver_mode", "additive")
-        if self.mode != "additive":
-            raise NotImplementedError(
-                "SOLVER_MODE=compositive " + _NOT_PORTED.format("Next, item 2")
-            )
+        if self.mode not in ("additive", "compositive"):
+            raise ValueError(f"SOLVER_MODE must be additive or compositive, got {self.mode}")
+        inc_inv = getattr(params, "incremental_inverse", None)
+        self.incremental_inverse = True if inc_inv is None else bool(inc_inv)
         self.warp_window = getattr(params, "warp_window", None)
         self.pyramid_levels = int(getattr(params, "pyramid_levels", 1) or 1)
         if self.pyramid_levels > 1:
@@ -519,11 +690,6 @@ class Solver:
         self.stall_window = int(getattr(params, "stall_window", 0) or 0)
         self.stall_rel = float(getattr(params, "stall_rel", 1e-3))
         self.fine_window = getattr(params, "fine_window", None)
-        if self.fine_window is not None and self.pyramid_levels > 1:
-            raise NotImplementedError(
-                "FINE_WINDOW with PYRAMID_LEVELS>1 (a compositive fine level) "
-                + _NOT_PORTED.format("Next, item 2")
-            )
         img = getattr(params, "inv_multigrid", None)
         self.inv_multigrid = (
             self.fused and (self.fine_window is not None or self.pyramid_levels > 1)
@@ -558,11 +724,23 @@ class Solver:
             stall_rel=self.stall_rel,
         )
 
+    @property
+    def takes_psi_inv0(self) -> bool:
+        """Whether a solve starts from the previous frame's psi_inv:
+        incremental_inverse in compositive mode, inverse_warm otherwise
+        (sobfu_tpu/pipeline.py:414-420)."""
+        return self.incremental_inverse if self.mode == "compositive" else self.inverse_warm
+
     def solve(self, psi, tsdf_global, weight_global, tsdf_n, weight_n, psi_inv0=None, *,
               record_energy: bool = False, skip_inv_warps: bool = False,
               skip_weight_warp: bool = False, inv_coarse: bool = False) -> SolveResult:
-        """One frame's solve on tensors: the pyramid when PYRAMID_LEVELS > 1,
-        else the single-level solve (with INNER_STEPS chunks where kept)."""
+        """One frame's solve on tensors, dispatched as JAX's
+        ``Solver.estimate_psi`` and ``fused_frame_step`` dispatch it: compositive
+        mode (the increment pyramid when PYRAMID_LEVELS > 1; skip_inv_warps
+        skips the inverse too, and skip_weight_warp and inv_coarse do not
+        apply), else the pyramid when PYRAMID_LEVELS > 1 (its fine level
+        compositive with FINE_WINDOW), else the single-level solve (with
+        INNER_STEPS chunks where kept)."""
         p = self.params
         args = (psi, tsdf_global, weight_global, tsdf_n, weight_n, self.taps, p.alpha,
                 p.w_reg, p.max_iter, p.max_update_norm, psi_inv0)
@@ -570,13 +748,22 @@ class Solver:
             record_energy=record_energy,
             energy_cap=p.max_iter if record_energy else 0,
             skip_inv_warps=skip_inv_warps,
-            skip_weight_warp=skip_weight_warp,
             **self.solve_kwargs(),
         )
+        if self.mode == "compositive":
+            # JAX leaves inverse_iters at its default (48) in this mode
+            kw.pop("inverse_iters")
+            kw["warp_window"] = self.warp_window or 2
+            return estimate_psi_compositive(
+                *args, fused=self.fused, inner_steps=self.inner_steps,
+                pyramid_levels=self.pyramid_levels, **kw,
+            )
+        kw["skip_weight_warp"] = skip_weight_warp
         if self.pyramid_levels > 1:
             return estimate_psi_pyramid(
                 *args, levels=self.pyramid_levels, fused=self.fused,
-                inv_multigrid=self.inv_multigrid, inv_coarse=inv_coarse, **kw,
+                fine_window=self.fine_window, inv_multigrid=self.inv_multigrid,
+                inv_coarse=inv_coarse, **kw,
             )
         return estimate_psi(*args, inner_steps=self.inner_steps, **kw)
 
@@ -587,7 +774,7 @@ class Solver:
         p = self.params
         res = self.solve(
             psi.data, phi_global.tsdf, phi_global.weight, phi_n.tsdf, phi_n.weight,
-            psi_inv.data if self.inverse_warm else None,
+            psi_inv.data if self.takes_psi_inv0 else None,
             record_energy=self.verbosity > 0,
         )
         psi.data = res.psi

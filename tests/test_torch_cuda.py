@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each against its plain torch version, and
-the solver (single-level and pyramid) on the card against its goldens.
+the solver (single-level, pyramid and compositive) on the card against its
+goldens.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither jax nor sobfu_tpu, so it runs where only torch is
@@ -10,7 +11,8 @@ installed:
 Tolerances: atol 1e-5 (the JAX kernel tests' bound) for the trilinear
 outputs — the kernels are built with --fmad=false and add in the plain
 versions' order, so they land on the same bits in practice; bitwise for the
-floor-corner warp and the fuse.
+floor-corner warp, the fuse and kernel F (whose floor index reads its own
+trilinear output).
 """
 
 import os
@@ -254,3 +256,95 @@ def test_pyramid_coarse_x64_level_launches_gd_multi(cuda):
     assert (got.iters, got.coarse_iters) == (want.iters, want.coarse_iters)
     np.testing.assert_allclose(got.psi.cpu().numpy(), want.psi.numpy(), atol=1e-5)
     np.testing.assert_allclose(got.psi_inv.cpu().numpy(), want.psi_inv.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kf,Kw", [(1, 2), (2, 2)])
+def test_compose_weight_kernel_bitwise(cuda, Kf, Kw):
+    """F: psi_new and the floor-sampled weight equal the plain version bit
+    for bit (an ulp in psi_new could move a floor index across an integer);
+    psi0 up to 0.95 and the increment up to Kf - 0.05 voxel from the
+    identity, so with Kf=2 psi_new leaves the Kw window and both clamp."""
+    rng = np.random.default_rng(11)
+    ident = np.stack(np.meshgrid(*[np.arange(d) for d in DIMS], indexing="ij")[::-1])
+    arrays = (ident + rng.uniform(-0.95, 0.95, (3,) + DIMS),
+              ident + rng.uniform(-(Kf - 0.05), Kf - 0.05, (3,) + DIMS),
+              rng.integers(0, 4, DIMS))
+    field, pos, weight = (torch.as_tensor(a, dtype=torch.float32, device=cuda) for a in arrays)
+    kernels.reset_launch_counts()
+    got = kernels.compose_weight(field, pos, weight, Kf, Kw)
+    assert kernels.launch_counts["compose_weight"] == 1
+    want = kernels.compose_weight_plain(field, pos, weight, Kf, Kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,amp", [(1, 0.95), (2, 1.95), (2, 3.5), (None, 3.5)])
+def test_warp_field3_kernel_matches_plain(cuda, K, amp):
+    """B on three channels, inside and beyond the window and exact; counted
+    under warp_field3, not warp."""
+    d = _inputs(cuda, amp)
+    field = _inputs(cuda, 2.0, seed=9)["psi"]
+    kernels.reset_launch_counts()
+    got = kernels.warp_field3(field, d["psi"], K)
+    assert kernels.launch_counts["warp_field3"] == 1 and kernels.launch_counts["warp"] == 0
+    torch.testing.assert_close(got, kernels.warp_field3_plain(field, d["psi"], K), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_compositive_on_card_matches_golden(cuda):
+    """tests/golden/solver_16_compositive.npz on the card (atol 1e-5): the
+    exact T0 warp and composition, 32 increment iterations, the cold
+    8-step inverse."""
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dims, vs = (16, 16, 16), 0.25 / 16
+    tg, wg = init_sphere(dims, (vs,) * 3, (0.125,) * 3, 0.04, 8 * vs, 3 * vs, device=cuda)
+    tn, wn = init_sphere(dims, (vs,) * 3, (0.118, 0.125, 0.125), 0.04, 8 * vs, 3 * vs,
+                         device=cuda)
+    kernels.reset_launch_counts()
+    res = solver.estimate_psi_compositive(
+        fields.identity_field(dims, device=cuda), tg, wg, tn, wn,
+        solver.sobolev_filter_1d(7, 0.1), 0.1, 0.3, 32, -1.0, warp_window=2, inverse_iters=8,
+    )
+    assert kernels.launch_counts["gd_iteration"] == 32
+    assert kernels.launch_counts["warp_field3"] == 1
+    g = np.load(os.path.join(ROOT, "tests", "golden", "solver_16_compositive.npz"))
+    np.testing.assert_allclose(res.psi.cpu().numpy(), g["psi"], atol=1e-5)
+    np.testing.assert_allclose(res.tsdf_n_psi.cpu().numpy(), g["tnp"], atol=1e-5)
+    np.testing.assert_allclose(res.psi_inv.cpu().numpy(), g["psi_inv"], atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fine_window_pyramid_on_card_matches_cpu(cuda):
+    """A pyramid with a compositive fine level (FINE_WINDOW=1) and the fused
+    dispatch on a 16x16x128 grid: E on the 8x8x64 coarse level, A on the
+    fine increment, F for the composition and C for the multigrid inverse;
+    the result matches the same solve on the CPU."""
+    dims = (16, 16, 128)
+    rng = np.random.default_rng(5)
+    tg = rng.standard_normal(dims).astype(np.float32) * 0.1
+    tn = np.roll(tg, 1, axis=2)
+    kw = dict(levels=2, warp_window=2, fine_window=1, momentum=0.95, inverse_iters=3,
+              stall_window=16, stall_rel=1e-2, fused=True, inv_multigrid=True)
+    taps = solver.sobolev_filter_1d(7, 0.1)
+
+    def run(dev):
+        t = [torch.as_tensor(a, device=dev) for a in (tg, tn)]
+        return solver.estimate_psi_pyramid(
+            fields.identity_field(dims, device=dev), t[0], t[0], t[1], t[1], taps, 0.05, 0.2,
+            40, 1e-3, **kw,
+        )
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    counts = dict(kernels.launch_counts)
+    assert counts["gd_multi"] == got.coarse_iters // 16 > 0
+    assert counts["gd_iteration"] == got.iters - got.coarse_iters
+    assert counts["compose_weight"] == 1 and counts["inverse_fixed_point"] == 2
+    want = run("cpu")
+    assert (got.iters, got.coarse_iters) == (want.iters, want.coarse_iters)
+    for field in ("psi", "psi_inv", "tsdf_n_psi", "weight_n_psi"):
+        np.testing.assert_allclose(getattr(got, field).cpu().numpy(),
+                                   getattr(want, field).numpy(), atol=1e-5, err_msg=field)

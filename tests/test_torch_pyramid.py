@@ -247,8 +247,3 @@ def test_production_pyramid_kwargs_match_jax(dim, warm, no_log):
         want.pop(key)
     assert got.pop("fused") == fused_db
     assert got == want
-
-
-def test_fine_window_not_ported():
-    with pytest.raises(NotImplementedError, match="FINE_WINDOW.*Next, item 2"):
-        ts.estimate_psi_pyramid(*_fixture(), levels=2, warp_window=2, fine_window=1)

@@ -131,15 +131,6 @@ def test_solver_class_verbose_prints(capsys):
     assert psi.data is res.psi and vols[3].tsdf is res.tsdf_n_psi
 
 
-@pytest.mark.parametrize("keys,match", [
-    ({"solver_mode": "compositive"}, "SOLVER_MODE=compositive"),
-    ({"fine_window": 1, "pyramid_levels": 2}, "FINE_WINDOW"),
-])
-def test_unported_keys_raise(keys, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ts.Solver(_params(**keys))
-
-
 def test_tpu_dispatch_keys_have_no_effect():
     """USE_PALLAS / WARP_PALLAS / Z_CHUNKS / CONV_MXU / FOLD_XMATS pick TPU
     layouts; the port's solve is the same with and without them."""
@@ -171,6 +162,15 @@ DERIVATION_CASES = {
     "fused-no-window": dict(volume_dims=(64,) * 3, fused_pallas=True, pyramid_levels=2),
     "cold": dict(volume_dims=(64,) * 3, warp_window=2, inverse_warm=False, pyramid_levels=2,
                  fused_pallas=True),
+    "compositive-128": dict(volume_dims=(128,) * 3, solver_mode="compositive", warp_window=2,
+                            momentum=0.9, pyramid_levels=2, fused_pallas=True, stall_window=16,
+                            max_iter=1024),
+    "compositive-incremental-off": dict(volume_dims=(32,) * 3, solver_mode="compositive",
+                                        warp_window=2, incremental_inverse=False,
+                                        fused_pallas=False),
+    "fine-window-128": dict(volume_dims=(128,) * 3, warp_window=2, momentum=0.95,
+                            pyramid_levels=2, fine_window=1, fused_pallas=True, stall_window=16,
+                            max_iter=1024, inv_coarse=True),
 }
 
 
@@ -187,7 +187,8 @@ def test_solver_derivations_match_jax(case):
     want = js.Solver(jp)
     assert port.fused == want.fused_pallas
     for name in ("pyramid_levels", "warp_window", "inv_multigrid", "inner_steps",
-                 "inv_coarse", "inverse_warm", "inverse_iters", "stall_window", "momentum"):
+                 "inv_coarse", "inverse_warm", "inverse_iters", "stall_window", "momentum",
+                 "mode", "incremental_inverse", "fine_window"):
         assert getattr(port, name) == getattr(want, name), name
 
 
