@@ -15,8 +15,9 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 Kw=2 and Kf=2, Kw=2; B on three channels, warp_field3, at
                 128^3, K=2, inside and beyond the window): atol 1e-5,
                 bitwise for the floor warp, the fuse and F, and E bit for
-                bit against 16 chained A launches; median times from CUDA
-                events
+                bit against 16 chained A launches; A over four scenes (see
+                11); median times from CUDA events, B's exact warp also
+                beside torch.nn.functional.grid_sample on the same inputs
   4. goldens    the solver on the card against tests/golden/solver_16*.npz
                 (atol 1e-5, the JAX package's frozen CPU results), the
                 pyramid and compositive goldens included
@@ -52,10 +53,32 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 128^3, 4 frames: E, B, A (the K=1 fine increment), F (the
                 composition and the weight) and C (the multigrid inverse,
                 carried half-res) must launch
+ 11. multiscene the scene-batched frame step (sobfu_tpu_torch.parallel.
+                make_frame_step) in tools/bench_multiscene_stream.py's
+                configuration at 128^3: its four scenes (spheres drifting
+                +x, -x, +y, -y), 6 frames with psi, tg, wg and psi_inv
+                carried, then scene 0 alone over the same frames; per
+                frame the seconds, each scene's coarse and fine iterations
+                and each level's batched loop; the scene-frames per second
+                of both and the busy share of a profiled frame of each.
+                A over scenes (gd_iteration_scenes), B, C and D must
+                launch, A never unbatched; scene 0 of the batch must equal
+                scene 0 alone bit for bit; every scene must track its own
+                drift by the tool's criterion (:164-179), on the tool's
+                band |tsdf| < 0.5 and on its observed part (weight > 0,
+                the surface; most of the tool's band is free space with
+                tsdf 0). Phase 3 holds
+                gd_iteration_scenes at 128^3, S=4, K=2, momentum 0.95 with
+                one scene inactive to its plain version and each scene to
+                an unbatched A launch bit for bit, and times it against
+                four unbatched A launches
 The launch counts of each path are zeroed just before it and read just
 after. The last three lines are the kernel report (JSON; launches summed
-over the paths above that run each kernel), the nvidia-smi line and
-{"ok": true, "device": {...}}.
+over the paths above that run each kernel; each kernel's time, its plain
+version's, the bound of its work at the shapes timed — the bytes it must
+move at 3.35 TB/s or its float operations at 67 TFLOP/s, whichever is
+larger — and, for B's exact warp, torch.nn.functional.grid_sample's time),
+the nvidia-smi line and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --probe DIR
 
@@ -85,6 +108,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 DIM = 128
 TAPS, LAMBDA = 7, 0.1
+# the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM3 bytes
+# per second and float32 operations per second outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float operations per voxel, counted from csrc/gd_step.cuh and sampling.cuh:
+# axis_taps on three axes (window: two clamps, a subtraction, two clamps, a
+# floor, an addition and two hat weights of four operations each; exact:
+# two clamps, a floor, the fraction), a trilinear blend (7 of 3 operations)
+TAPS_OPS = {"window": 45, "exact": 12}
+TRILINEAR_OPS = 21
+FLOOR_OPS = 21  # floor_coord on three axes
 
 
 def check(ok: bool, msg: str) -> None:
@@ -130,6 +164,39 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def gd_ops(n_taps: int, window: bool, momentum: bool, energy: bool) -> int:
+    """Float operations of one A iteration per voxel: the potential (three
+    central differences, tnp - tg, per channel three second differences,
+    the negated Laplacian and dU: 52), the update (per channel three
+    n_taps-tap convolutions, their sum, the step and psi - update; the
+    squared norm), the momentum, the re-warp and the energy."""
+    potential = 6 + 1 + 3 * (9 + 3 + 3)
+    update = 3 * (6 * n_taps + 2 + 2) + 5 + (6 if momentum else 0)
+    warp = TAPS_OPS["window" if window else "exact"] + TRILINEAR_OPS
+    return potential + update + warp + (3 if energy else 0)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: int, ops: float):
+    """(The least milliseconds the card could take: the bytes the function
+    must move — each input read once, each output written once — at the
+    memory rate, or its float operations at the FP32 rate, whichever is
+    larger; which of the two it is)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row(err, ms, plain_ms, n_bytes, ops, library_ms=None) -> dict:
+    """One kernel's entries of the report line."""
+    bound_ms, bound_by = bound(n_bytes, ops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def max_abs(a, b) -> float:
     import torch
 
@@ -145,7 +212,7 @@ def bitwise(a, b) -> bool:
 
 
 def check_kernels(torch, kernels, fields, solver):
-    """Phase 3: returns {name: (max_abs_err, ms, plain_ms)} at K=2."""
+    """Phase 3: returns {name: report row} (:func:`row`)."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     dims = (DIM, DIM, DIM)
@@ -184,7 +251,10 @@ def check_kernels(torch, kernels, fields, solver):
     args = (psi_w, tnp, vel, tg, live, taps, alpha, w_reg, None, 2)
     ms = cuda_ms(lambda: kernels.gd_iteration(*args), 50)
     plain = cuda_ms(lambda: kernels.gd_iteration_plain(*args), 10)
-    results["gd_iteration"] = (max(errs), ms, plain)
+    n = tg.numel()
+    results["gd_iteration"] = row(max(errs), ms, plain,
+                                  nbytes(psi_w, tnp, tg, live, *kernels.gd_iteration(*args)[:2]),
+                                  n * gd_ops(TAPS, True, False, False))
 
     # B: warp (trilinear, floor, mixed)
     errs = []
@@ -202,7 +272,17 @@ def check_kernels(torch, kernels, fields, solver):
     vol1 = tg[None].contiguous()
     ms = cuda_ms(lambda: kernels.warp(vol1, psi_w, 2, (False,)), 50)
     plain = cuda_ms(lambda: kernels.warp_plain(vol1, psi_w, 2, (False,)), 10)
-    results["warp"] = (max(errs), ms, plain)
+    log("kernels", f"warp K=2, one channel: {ms:.4f} ms kernel, {plain:.4f} ms plain (median)")
+    # the report's row: the exact warp, the function one library call computes
+    ms = cuda_ms(lambda: kernels.warp(vol1, psi_x, None, (False,)), 50)
+    plain = cuda_ms(lambda: kernels.warp_plain(vol1, psi_x, None, (False,)), 10)
+    lib, lib_err = library_warp(torch, tg, psi_x, kernels.warp(vol1, psi_x, None, (False,))[0])
+    library_ms = cuda_ms(lib, 50)
+    log("kernels", f"warp exact: torch.nn.functional.grid_sample {library_ms:.4f} ms (the "
+        f"library yardstick, never called by the port), max|d| from B {lib_err:.3e}")
+    check(lib_err <= 1e-4, "grid_sample does not compute B's exact warp")
+    results["warp"] = row(max(errs), ms, plain, nbytes(vol1, psi_x, vol1),
+                          n * (TAPS_OPS["exact"] + TRILINEAR_OPS), library_ms)
 
     # C: inverse fixed point (warm 3 steps in the window, 48 exact from identity)
     errs = []
@@ -218,7 +298,10 @@ def check_kernels(torch, kernels, fields, solver):
         errs.append(e)
     ms = cuda_ms(lambda: kernels.inverse_fixed_point(psi_small, 3, 2, warm), 50)
     plain = cuda_ms(lambda: kernels.inverse_fixed_point_plain(psi_small, 3, 2, warm), 10)
-    results["inverse_fixed_point"] = (max(errs), ms, plain)
+    # per step: the taps, three trilinear channels, identity minus the sample
+    results["inverse_fixed_point"] = row(
+        max(errs), ms, plain, nbytes(psi_small, warm, psi_small),
+        n * (3 + 3 * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + 3)))
 
     # D: warp_fuse, bitwise
     errs = []
@@ -235,7 +318,9 @@ def check_kernels(torch, kernels, fields, solver):
     args = (tg, wgc, tnp_q, wnc, psi_w, 128.0, 2)
     ms = cuda_ms(lambda: kernels.warp_fuse(*args), 50)
     plain = cuda_ms(lambda: kernels.warp_fuse_plain(*args), 10)
-    results["warp_fuse"] = (max(errs), ms, plain)
+    # the floor sample, then the fuse's multiply-add, two additions, a division, a clamp
+    results["warp_fuse"] = row(max(errs), ms, plain, nbytes(tg, wgc, tnp_q, wnc, psi_w, tg, wgc),
+                               n * (FLOOR_OPS + 6))
     # A's stall energy (the fine level's check iterations)
     args = (psi_w, tnp, vel, tg, live, taps, alpha, w_reg, 0.95, 2)
     e_got = kernels.gd_iteration(*args, with_energy=True)[4]
@@ -265,7 +350,9 @@ def check_kernels(torch, kernels, fields, solver):
     g1 = ident + t(rng.uniform(-0.95, 0.95, (3,) + dims))
     ms = cuda_ms(lambda: kernels.compose_weight(psi0, g1, wnc, 1, 2), 50)
     plain = cuda_ms(lambda: kernels.compose_weight_plain(psi0, g1, wnc, 1, 2), 10)
-    results["compose_weight"] = (max(errs), ms, plain)
+    results["compose_weight"] = row(
+        max(errs), ms, plain, nbytes(psi0, g1, wnc, psi0, wnc),
+        n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + FLOOR_OPS))
 
     # B on three channels: warp_field3 at K=2 inside and beyond the window
     errs = []
@@ -279,20 +366,108 @@ def check_kernels(torch, kernels, fields, solver):
         errs.append(e)
     ms = cuda_ms(lambda: kernels.warp_field3(field, psi_w, 2), 50)
     plain = cuda_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2), 10)
-    results["warp_field3"] = (max(errs), ms, plain)
+    results["warp_field3"] = row(max(errs), ms, plain, nbytes(field, psi_w, field),
+                                 n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS))
 
-    where = {"gd_multi": "64^3, K=1, 16 iterations", "compose_weight": "128^3, Kf=1, Kw=2"}
-    for name, (e, ms, plain) in results.items():
-        log("kernels", f"{name}: {ms:.4f} ms kernel, {plain:.4f} ms plain "
-            f"(median, {where.get(name, '128^3, K=2')})")
+    results["gd_iteration_scenes"] = check_gd_iteration_scenes(torch, kernels, fields, solver)
+
+    where = {"gd_multi": "64^3, K=1, momentum 0.95, 16 iterations",
+             "compose_weight": "128^3, Kf=1, Kw=2", "warp": "128^3, exact, one channel",
+             "gd_iteration_scenes": "4 scenes of 128^3, K=2, momentum 0.95"}
+    for name, r in results.items():
+        log("kernels", f"{name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} (median, {where.get(name, '128^3, K=2')})")
     return results
+
+
+def library_warp(torch, vol, psi, want):
+    """B's exact warp of one volume as one library call, timed beside B as
+    library_ms and called nowhere in the port: torch.nn.functional.
+    grid_sample on a 5-D input, trilinear ("bilinear" on 5-D), "border"
+    padding (the clamp to [0, n - 1]), align_corners (voxel 0 at -1 and
+    voxel n - 1 at 1); the grid is built from psi outside the timed call.
+    Returns (the call, its max |difference| from B's output)."""
+    import torch.nn.functional as F
+
+    Z, Y, X = vol.shape
+    ext = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=vol.device)
+    grid = (psi.permute(1, 2, 3, 0) / ext * 2.0 - 1.0)[None].contiguous()
+    inp = vol[None, None].contiguous()
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    return call, max_abs(call()[0, 0], want)
+
+
+def check_gd_iteration_scenes(torch, kernels, fields, solver):
+    """A over S = 4 scenes at 128^3, K=2, momentum 0.95 (the multiscene
+    phase's fine level). With scene 2 inactive: against its plain version
+    (atol 1e-5 on the state, rtol 1e-5 on the norms and energies), each
+    active scene bit for bit against an unbatched A launch, the inactive
+    scene passed through with norm and energy 0. Then all four active,
+    timed against one unbatched A launch (the same options). Returns its
+    report row."""
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(3)
+    dims, vs, S = (DIM,) * 3, 1.0 / DIM, 4
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    ident = fields.identity_field(dims, device=dev)
+    spheres = [init_sphere(dims, (vs,) * 3, (0.5 + 0.01 * d, 0.5, 0.5), 0.2, 8 * vs, 3 * vs,
+                           device=dev)[0] for d in range(-S, S + 1)]
+    b = {
+        "psi": torch.stack([ident + t(rng.uniform(-1.8, 1.8, (3,) + dims)) for _ in range(S)]),
+        "tnp": torch.stack([spheres[s] + t(rng.normal(0.0, 0.05, dims)) for s in range(S)]),
+        "vel": t(rng.normal(0.0, 0.1, (S, 3) + dims)),
+        "tg": torch.stack(spheres[S:2 * S]),
+        "live": torch.stack(spheres[1:S + 1]),
+    }
+    taps = torch.as_tensor(solver.sobolev_filter_1d(TAPS, LAMBDA), device=dev)
+    args = (b["psi"], b["tnp"], b["vel"], b["tg"], b["live"], taps, 0.05, 0.2, 0.95, 2)
+    active = torch.tensor([True, True, False, True], device=dev)
+    got = kernels.gd_iteration_scenes(*args, active, with_energy=True)
+    ref = kernels.gd_iteration_scenes_plain(*args, active, with_energy=True)
+    err = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
+    rel = max(float(torch.max(torch.abs(g - r) / torch.abs(r).clamp_min(1e-30)))
+              for g, r in zip(got[3:], ref[3:]))
+    bit = all(
+        all(bitwise(g[s], w) for g, w in zip(got, kernels.gd_iteration(
+            *(b[k][s] for k in ("psi", "tnp", "vel", "tg", "live")), taps, 0.05, 0.2, 0.95, 2,
+            with_energy=True)))
+        for s in (0, 1, 3)
+    )
+    kept = (bitwise(got[0][2], b["psi"][2]) and bitwise(got[1][2], b["tnp"][2])
+            and bitwise(got[2][2], b["vel"][2]) and float(got[3][2]) == float(got[4][2]) == 0.0)
+    log("kernels", f"gd_iteration_scenes S={S}, scene 2 inactive: max|d| {err:.3e}, max rel d "
+        f"norms and energies {rel:.3e}; active scenes bitwise with unbatched A {bit}; the "
+        f"inactive scene kept {kept}")
+    check(err <= 1e-5 and rel <= 1e-5, "gd_iteration_scenes disagrees with its plain version")
+    check(bit, "gd_iteration_scenes is not bit-identical to unbatched gd_iteration per scene")
+    check(kept, "gd_iteration_scenes changed an inactive scene")
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    ms = cuda_ms(lambda: kernels.gd_iteration_scenes(*args, on), 50)
+    one = cuda_ms(lambda: kernels.gd_iteration(*(b[k][0] for k in ("psi", "tnp", "vel", "tg",
+                                                                  "live")),
+                                               taps, 0.05, 0.2, 0.95, 2), 50)
+    plain = cuda_ms(lambda: kernels.gd_iteration_scenes_plain(*args, on), 5)
+    log("kernels", f"gd_iteration_scenes: {ms:.4f} ms per batched iteration of {S} scenes, "
+        f"unbatched A {one:.4f} ms x {S} = {S * one:.4f} ms (ratio {ms / (S * one):.4f})")
+    out = kernels.gd_iteration_scenes(*args, on)
+    return row(err, ms, plain, nbytes(*b.values(), *out[:3]),
+               S * ident[0].numel() * gd_ops(TAPS, True, True, False))
 
 
 def check_gd_multi(torch, kernels, fields, solver):
     """Kernel E at the coarse level's shapes: 64^3, K=1, momentum 0.95,
     n_inner=16. Against its plain version (atol 1e-5 on the state, rtol 1e-5
-    on the rows) and bit for bit against 16 chained A launches. Returns
-    (max_abs_err, ms, plain_ms); logs 16 chained A launches' time too."""
+    on the rows) and bit for bit against 16 chained A launches. Returns its
+    report row; logs 16 chained A launches' time too."""
     from sobfu_tpu_torch.tsdf import init_sphere
 
     dev = torch.device(DEVICE)
@@ -346,7 +521,10 @@ def check_gd_multi(torch, kernels, fields, solver):
     plain = cuda_ms(lambda: kernels.gd_multi_plain(*args), 5)
     log("kernels", f"gd_multi 16 iterations at 64^3: {ms:.4f} ms one launch, "
         f"{ms_a:.4f} ms 16 chained gd_iteration (with energy), {plain:.4f} ms plain")
-    return max(errs), ms, plain
+    out = kernels.gd_multi(*args)
+    return row(max(errs), ms, plain,
+               nbytes(psi, tnp, vel, tg, live, out.psi, out.tnp, out.vel, out.mx_sq),
+               16 * tg.numel() * gd_ops(TAPS, True, True, False))
 
 
 def check_goldens(torch, fields, solver):
@@ -538,6 +716,195 @@ def run_compositive(torch, kernels, params, n_frames, step, expect):
     return {k: counts[k] + refresh[k] for k in counts}
 
 
+# tools/bench_multiscene_stream.py's scenes: a 0.25 m volume 0.15 m in front
+# of a 64x48 camera (fx = fy = 40), a 0.05 m sphere per scene, each
+# drifting along its own direction (:98-100)
+MULTISCENE_DIRS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0))
+
+
+def render_dists(H, W, fx, fy, cx, cy, centre, radius):
+    """Metric ray-length map of a sphere (the ray caster of
+    tools/bench_multiscene_stream.py:38-51; that module imports JAX)."""
+    u = np.arange(W, dtype=np.float64)[None, :]
+    v = np.arange(H, dtype=np.float64)[:, None]
+    dx = np.broadcast_to((u - cx) / fx, (H, W))
+    dy = np.broadcast_to((v - cy) / fy, (H, W))
+    d = np.stack([dx, dy, np.ones((H, W))], axis=-1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    c = np.asarray(centre, np.float64)
+    b = d @ c
+    disc = b * b - (c @ c - radius * radius)
+    t = b - np.sqrt(np.maximum(disc, 0.0))
+    hit = (disc > 0) & (t > 0)
+    return np.where(hit, t, 0.0).astype(np.float32)
+
+
+def multiscene_stream(torch, S, n_frames):
+    """tools/bench_multiscene_stream.py's configuration and stream at DIM^3
+    for its first S scenes: (the frame step, the initial (psi, tg, wg,
+    psi_inv), the depth batches of frames 0..n_frames, vol2cam, the step's
+    scalars). The canonical is integrated from frame 0; scene s drifts
+    min(0.9, 1.8 / n_frames) voxels a frame along its direction."""
+    from sobfu_tpu_torch import fields, solver
+    from sobfu_tpu_torch.parallel import make_frame_step
+    from sobfu_tpu_torch.tsdf import integrate_dists
+
+    dev = torch.device(DEVICE)
+    dims = (DIM,) * 3
+    size = 0.25
+    vs = size / DIM
+    trunc, eta = 8 * vs, 3 * vs
+    H, W, f = 48, 64, 40.0
+    intr = (f, f, W / 2 - 0.5, H / 2 - 0.5)
+    taps = solver.sobolev_filter_1d(7, 0.1)
+    step = make_frame_step(
+        dims, inverse_iters=3, warp_window=2, fused=True, taps_static=tuple(taps),
+        momentum=0.95, warm_inverse=True, pyramid_levels=2, stall_window=8, stall_rel=1e-2,
+        fold_xmats=True, device=DEVICE,
+    )
+    vol2cam = np.eye(4, dtype=np.float32)
+    vol2cam[:3, 3] = (-size / 2, -size / 2, 0.15)
+    z_cam, r_sph = size / 2 + 0.15, 0.05
+    zero = torch.zeros(dims, dtype=torch.float32, device=dev)
+    d0 = torch.as_tensor(render_dists(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
+    tg1, wg1 = integrate_dists(zero, zero, d0, vol2cam, intr, (vs,) * 3, trunc, eta)
+    psi1 = fields.identity_field(dims, device=dev)
+    state = (psi1.expand(S, -1, -1, -1, -1).contiguous(), tg1.expand(S, -1, -1, -1).contiguous(),
+             wg1.expand(S, -1, -1, -1).contiguous(), psi1.expand(S, -1, -1, -1, -1).contiguous())
+    step_m = min(0.9, 1.8 / n_frames) * vs
+    frames = [torch.as_tensor(np.stack([
+        render_dists(H, W, *intr, (d[0] * step_m * i, d[1] * step_m * i, z_cam), r_sph)
+        for d in MULTISCENE_DIRS[:S]]), device=dev) for i in range(n_frames + 1)]
+    scalars = (intr, (vs,) * 3, trunc, eta, 64.0, taps, 0.1, 0.2, 96, 1e-3)
+    return step, state, frames, np.broadcast_to(vol2cam, (S, 4, 4)), scalars
+
+
+def run_multiscene(torch, kernels, S, n_frames, phase):
+    """The stream of S scenes through make_frame_step: a warm-up step on
+    frame 0 whose output is dropped (as the tool's), then frames 1..n_frames
+    with psi, tg, wg and psi_inv carried. Per frame: the seconds, each
+    scene's coarse and fine iterations, and each level's batched loop timed
+    on its own. Returns a dict: launch counts, the final state, the
+    per-frame iterations and seconds, and what the profiled frame needs."""
+    from sobfu_tpu_torch.parallel import sharding
+
+    StageClock = tool("profile_torch_frame").StageClock
+    step, state, frames, v2c, scalars = multiscene_stream(torch, S, n_frames)
+    step(state[0], state[1], state[2], frames[0], v2c, *scalars, state[3])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    iters, secs, prev = [], [], state
+    for i in range(1, n_frames + 1):
+        prev = state
+        with StageClock((sharding, "_gd_loop_scenes")) as clock:
+            t0 = time.perf_counter()
+            out = step(state[0], state[1], state[2], frames[i], v2c, *scalars, state[3])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        state = (out[0], out[2], out[3], out[1])
+        coarse = step.coarse_iters
+        fine = out[4].numpy() - coarse
+        iters.append(out[4].numpy())
+        secs.append(dt)
+        levels = "; ".join(
+            f"{'x'.join(map(str, shape[-3:]))} loop {int(res[2].max())} batched iterations in "
+            f"{1e3 * sec:.4f} ms ({1e3 * sec / max(int(res[2].max()), 1):.4f} ms each)"
+            for _, shape, res, sec in clock.calls)
+        log(phase, f"frame {i}: {dt:.4f} s; coarse iterations {coarse.tolist()}, fine "
+            f"{fine.tolist()}; {levels}")
+    counts = dict(kernels.launch_counts)
+    log(phase, f"{S} scenes x {n_frames} frames in {sum(secs):.4f} s: "
+        f"{S * n_frames / sum(secs):.4f} scene-frames/s; launch counts {counts}")
+    return dict(counts=counts, state=state, iters=iters, secs=secs, step=step, prev=prev,
+                last=(frames[n_frames], v2c, scalars))
+
+
+def profile_step(torch, run, phase):
+    """The last frame's step again, from the state before it, under
+    torch.profiler: (wall seconds, device seconds, busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device_us = tool("profile_torch_frame")._device_us
+    state, (dists, v2c, scalars) = run["prev"], run["last"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run["step"](state[0], state[1], state[2], dists, v2c, *scalars, state[3])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = sorted(((device_us(e), e.count, e.key) for e in prof.key_averages()
+                         if "CUDA" in str(getattr(e, "device_type", ""))), reverse=True)
+    busy = sum(us for us, _, _ in per_kernel) * 1e-6
+    log(phase, f"profiled last frame: {1e3 * wall:.4f} ms wall, {1e3 * busy:.4f} ms device, "
+        f"busy {100 * busy / wall:.1f}%; the longest: " + "; ".join(
+            f"{key[:40]} {us / 1e3:.4f} ms in {n}" for us, n, key in per_kernel[:5]))
+    return wall, busy
+
+
+def tracking(torch, state, S, observed=False):
+    """tools/bench_multiscene_stream.py:164-179: on each scene's band
+    |tsdf| < 0.5 (at least 50 voxels) the mean displacement points along
+    the scene's own direction (> 0.2 voxel) and its orthogonal part stays
+    under 0.5 x that + 0.2. The tool's band is mostly free space (tsdf 0,
+    never observed); observed=True narrows it to weight > 0, the surface.
+    Returns [(band voxels, along, orthogonal, ok)]."""
+    from sobfu_tpu_torch import fields
+
+    out = []
+    for s in range(S):
+        disp = fields.displacement(state[0][s])
+        band = torch.abs(state[1][s]) < 0.5
+        if observed:
+            band &= state[2][s] > 0
+        n = int(band.sum())
+        m = np.asarray([float(disp[c][band].mean()) for c in range(3)]) if n else np.zeros(3)
+        d = np.asarray(MULTISCENE_DIRS[s], np.float64)
+        proj = float(m @ d)
+        orth = float(np.linalg.norm(m - proj * d))
+        out.append((n, proj, orth, n >= 50 and proj > 0.2 and orth < 0.5 * abs(proj) + 0.2))
+    return out
+
+
+def run_multiscene_phase(torch, kernels, n_frames=6):
+    """The multiscene phase: tools/bench_multiscene_stream.py's configuration
+    at 128^3 with its four scenes, then scene 0 alone over the same frames.
+    Checks: the path's kernels launched (A as gd_iteration_scenes only),
+    scene 0 of the batch equal to scene 0 alone bit for bit (state and
+    iterations of every frame), every scene tracking its own drift. Prints
+    the scene-frames per second of both and the busy share of a profiled
+    frame of each. Returns the launch counts of both runs."""
+    S = len(MULTISCENE_DIRS)
+    four = run_multiscene(torch, kernels, S, n_frames, "multiscene")
+    one = run_multiscene(torch, kernels, 1, n_frames, "multiscene S=1")
+    for name in ("gd_iteration_scenes", "warp", "inverse_fixed_point", "warp_fuse"):
+        check(four["counts"][name] > 0 and one["counts"][name] > 0,
+              f"multiscene: kernel {name} was never launched")
+    check(four["counts"]["gd_iteration"] == 0, "multiscene: A ran unbatched")
+    same = all(bitwise(a[0], b[0]) for a, b in zip(four["state"], one["state"])) and all(
+        int(a[0]) == int(b[0]) for a, b in zip(four["iters"], one["iters"]))
+    log("multiscene", f"scene 0 of the batch equals scene 0 alone bit for bit "
+        f"(psi, tg, wg, psi_inv; iterations of every frame): {same}")
+    check(same, "multiscene: scene 0 of the batch differs from scene 0 alone")
+    rate4 = S * n_frames / sum(four["secs"])
+    rate1 = n_frames / sum(one["secs"])
+    log("multiscene", f"scene-frames/s: {rate4:.4f} with {S} scenes, {rate1:.4f} with 1 "
+        f"(ratio {rate4 / rate1:.4f})")
+    drift = min(0.9, 1.8 / n_frames) * n_frames  # voxels along each scene's direction
+    for observed, band in ((False, "band"), (True, "observed band (weight > 0)")):
+        for s, (n, proj, orth, ok) in enumerate(tracking(torch, four["state"], S, observed)):
+            log("multiscene", f"scene {s} direction {MULTISCENE_DIRS[s]}: {band} {n} voxels, "
+                f"mean displacement along it {proj:.4f} of a {drift:.2f}-voxel drift, "
+                f"orthogonal {orth:.4f}: tracking {ok}")
+            check(ok, f"multiscene: scene {s} does not track its drift on the {band}")
+    shape = (S, 3) + (DIM,) * 3
+    check(tuple(four["state"][0].shape) == shape and all(
+        bool(torch.isfinite(x).all()) for x in four["state"]), "multiscene: the state")
+    w4, b4 = profile_step(torch, four, "multiscene")
+    w1, b1 = profile_step(torch, one, "multiscene S=1")
+    log("multiscene", f"busy share under the profiler: {100 * b4 / w4:.1f}% with {S} scenes, "
+        f"{100 * b1 / w1:.1f}% with 1")
+    return [four["counts"], one["counts"]]
+
+
 def top_level_clock(*targets):
     """A StageClock that times only the calls not nested in another timed
     call, so that its stages add up to at most the frame."""
@@ -719,6 +1086,7 @@ def main(argv=None) -> int:
     runs.append(run_pyramid(torch, kernels, params, 4, "fine_window",
                             ("gd_multi", "warp", "gd_iteration", "compose_weight",
                              "inverse_fixed_point")))
+    runs.extend(run_multiscene_phase(torch, kernels))
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}
@@ -730,9 +1098,7 @@ def main(argv=None) -> int:
             "source": kernels.KERNELS[name][0],
             "replaces": kernels.KERNELS[name][1],
             "launches": launches[name],
-            "max_abs_err": results[name][0],
-            "ms": results[name][1],
-            "plain_ms": results[name][2],
+            **results[name],
         }
         for name in all_kernels
     ]}

@@ -10,9 +10,10 @@ counterpart is easy to find:
 - deformation fields, samplers, stencils        -> :mod:`sobfu_tpu_torch.fields`
 - the Sobolev gradient-descent solver           -> :mod:`sobfu_tpu_torch.solver`
 - the pyramid's resamples, multigrid inverse    -> :mod:`sobfu_tpu_torch.pyramid`
-- the five CUDA kernels of the main path        -> :mod:`sobfu_tpu_torch.ops.kernels`
+- the CUDA kernels and their plain versions     -> :mod:`sobfu_tpu_torch.ops.kernels`
 - marching cubes                                -> :mod:`sobfu_tpu_torch.mc`
 - the frame loop                                -> :mod:`sobfu_tpu_torch.pipeline`
+- the scene-batched frame step (one device)     -> :mod:`sobfu_tpu_torch.parallel`
 
 It imports torch, numpy and the standard library only. Tensors on a CUDA
 device run through the hand-written kernels in ``csrc/`` (built with nvcc

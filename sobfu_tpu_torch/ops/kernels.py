@@ -5,7 +5,9 @@ wrapper             replaces (sobfu_tpu/ops/pallas_kernels.py)  source
 ==================  ==========================================  =============
 gd_iteration (A)    fused_gd_iteration_pp :2443 (+ the db /     csrc/gd_iteration.cu
                     fold / stacked / step layouts)
-warp (B)            window_warp_pallas :478,                    csrc/warp.cu
+gd_iteration_scenes fused_gd_iteration_db_padded :1075 (the     csrc/gd_iteration.cu
+(A over scenes)     scene-batched frame step's kernel)
+warp (B)          window_warp_pallas :478,                    csrc/warp.cu
                     window_warp_pallas_mixed :508
 inverse_fixed_point estimate_inverse_window_pallas_multi :3061  csrc/inverse.cu
 (C)                 (+ estimate_inverse_window_pallas :1883)
@@ -35,7 +37,7 @@ from sobfu_tpu_torch.tsdf import fuse_volumes
 
 launch_counts = {
     "gd_iteration": 0, "warp": 0, "inverse_fixed_point": 0, "warp_fuse": 0, "gd_multi": 0,
-    "compose_weight": 0, "warp_field3": 0,
+    "compose_weight": 0, "warp_field3": 0, "gd_iteration_scenes": 0,
 }
 
 # what each kernel replaces and where its source lives (chip_smoke.py reports it)
@@ -62,6 +64,10 @@ KERNELS = {
         "sobfu_tpu/ops/pallas_kernels.py:3223",
     ),
     "warp_field3": ("sobfu_tpu_torch/csrc/warp.cu", "sobfu_tpu/ops/pallas_kernels.py:3309"),
+    "gd_iteration_scenes": (
+        "sobfu_tpu_torch/csrc/gd_iteration.cu",
+        "sobfu_tpu/ops/pallas_kernels.py:1075",
+    ),
 }
 
 # voxels per tile of the kernels' reductions (csrc/sampling.cuh kBlock)
@@ -325,12 +331,58 @@ def gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
     return psi_new, tnp_new, vel_new, max_sq
 
 
+def _launch_gd(kernel: str, lead: tuple, psi, tnp, vel, tg, live, taps, alpha, w_reg,
+               momentum, K, active, with_energy: bool):
+    """A's launch, counted under ``kernel``: lead () for one scene (psi
+    f32[3,Z,Y,X]; the norm and energy 0-dim), (S,) for S scenes (psi
+    f32[S,3,Z,Y,X]; the norms and energies f32[S]). active None = every
+    scene runs."""
+    S = lead[0] if lead else 1
+    Z, Y, X = psi.shape[-3:]
+    vols = lead + (Z, Y, X)
+    flds = lead + (3, Z, Y, X)
+    dev = psi.device
+    if not 1 <= S <= 65535:
+        raise ValueError(f"{kernel} takes 1..65535 scenes, got {S}")
+    if active is not None:
+        if active.device != dev or active.dtype not in (torch.bool, torch.uint8):
+            raise TypeError(f"active: {active.dtype} on {active.device}, expected bool on {dev}")
+        if tuple(active.shape) != (S,) or not active.is_contiguous():
+            raise ValueError(f"active: shape {tuple(active.shape)}, expected ({S},) contiguous")
+    s = _check_taps(taps, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dU = torch.empty_like(psi)
+    psi_out = torch.empty_like(psi)
+    tnp_out = torch.empty_like(tnp)
+    vel_out = torch.empty_like(psi) if momentum is not None else None
+    max_sq = torch.empty(lead, **f32)
+    parts = torch.empty(lead + (_n_tiles((Z, Y, X)),), **f32) if with_energy else None
+    e = torch.empty(lead, **f32) if with_energy else None
+    _launch(
+        kernel, "sobfu_gd_iteration", dev,
+        _check("psi", psi, flds, dev),
+        _check("tnp", tnp, vols, dev),
+        None if momentum is None else _check("vel", vel, flds, dev),
+        _check("tg", tg, vols, dev),
+        _check("live", live, vols, dev),
+        taps.data_ptr(), s,
+        float(alpha), float(w_reg), 0.0 if momentum is None else float(momentum),
+        _ptr(active),
+        dU.data_ptr(), psi_out.data_ptr(), tnp_out.data_ptr(), _ptr(vel_out),
+        max_sq.data_ptr(), _ptr(parts), _ptr(e), S, Z, Y, X, _K(K),
+    )
+    if with_energy:
+        return psi_out, tnp_out, vel_out, max_sq, e
+    return psi_out, tnp_out, vel_out, max_sq
+
+
 def gd_iteration(
     psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
     momentum: Optional[float], K: Optional[int], with_energy: bool = False,
 ):
     """Kernel A: one gradient-descent iteration (two launches, three with the
-    energy; counted once).
+    energy; counted once): the launch of :func:`gd_iteration_scenes` with
+    one scene and no scene axis.
 
     psi f32[3,Z,Y,X]; tnp, tg, live f32[Z,Y,X]; vel f32[3,Z,Y,X] when
     momentum is set, else ignored; taps f32[s] (s odd, <= 11). Returns
@@ -342,33 +394,51 @@ def gd_iteration(
         return gd_iteration_plain(
             psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, with_energy
         )
-    Z, Y, X = psi.shape[1:]
-    dims = (Z, Y, X)
-    dev = psi.device
-    s = _check_taps(taps, dev)
-    dU = torch.empty_like(psi)
-    psi_out = torch.empty_like(psi)
-    tnp_out = torch.empty_like(tnp)
-    vel_out = torch.empty_like(psi) if momentum is not None else None
-    max_sq = torch.empty((), dtype=torch.float32, device=dev)
-    parts = torch.empty(_n_tiles(dims), dtype=torch.float32, device=dev) if with_energy else None
-    e = torch.empty((), dtype=torch.float32, device=dev) if with_energy else None
-    _launch(
-        "gd_iteration", "sobfu_gd_iteration", dev,
-        _check("psi", psi, (3,) + dims, dev),
-        _check("tnp", tnp, dims, dev),
-        None if momentum is None else _check("vel", vel, (3,) + dims, dev),
-        _check("tg", tg, dims, dev),
-        _check("live", live, dims, dev),
-        taps.data_ptr(), s,
-        float(alpha), float(w_reg), 0.0 if momentum is None else float(momentum),
-        dU.data_ptr(), psi_out.data_ptr(), tnp_out.data_ptr(),
-        None if vel_out is None else vel_out.data_ptr(),
-        max_sq.data_ptr(), _ptr(parts), _ptr(e), Z, Y, X, _K(K),
-    )
-    if with_energy:
-        return psi_out, tnp_out, vel_out, max_sq, e
-    return psi_out, tnp_out, vel_out, max_sq
+    return _launch_gd("gd_iteration", (), psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum,
+                      K, None, with_energy)
+
+
+def gd_iteration_scenes_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                              active, with_energy: bool = False):
+    """:func:`gd_iteration_plain` on each scene whose ``active`` entry is
+    set; an inactive scene passes through with max_sq (and energy) 0."""
+    outs = []
+    for s, on in enumerate(active.tolist()):
+        v = vel[s] if momentum is not None else None
+        if on:
+            outs.append(gd_iteration_plain(psi[s], tnp[s], v, tg[s], live[s], taps, alpha,
+                                           w_reg, momentum, K, with_energy))
+        else:
+            zero = psi.new_zeros(())
+            outs.append((psi[s], tnp[s], v, zero) + ((zero,) if with_energy else ()))
+    cols = [torch.stack(col) if col[0] is not None else None for col in zip(*outs)]
+    return tuple(cols)
+
+
+def gd_iteration_scenes(
+    psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
+    momentum: Optional[float], K: Optional[int], active, with_energy: bool = False,
+):
+    """Kernel A over a leading scene axis: one launch of each of A's bodies
+    for all S scenes (counted once, apart from :func:`gd_iteration`).
+
+    psi f32[S,3,Z,Y,X]; tnp, tg, live f32[S,Z,Y,X]; vel f32[S,3,Z,Y,X] when
+    momentum is set, else ignored; active bool or uint8 [S] on the same
+    device: a scene whose entry is 0 keeps psi, tnp and vel unchanged and
+    reports max_sq 0, as a scene whose while_loop predicate is false does
+    under jax.vmap. Returns (psi', tnp', vel' or None, max_sq f32[S]);
+    with_energy appends e_data f32[S] (A's fixed-order energy per scene, 0
+    for an inactive scene). Scene s equals :func:`gd_iteration` on scene s
+    bit for bit.
+    """
+    if _on_cpu(psi):
+        return gd_iteration_scenes_plain(
+            psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, active, with_energy
+        )
+    if active is None:
+        raise TypeError("gd_iteration_scenes: active is a bool tensor of shape (S,)")
+    return _launch_gd("gd_iteration_scenes", tuple(psi.shape[:1]), psi, tnp, vel, tg, live,
+                      taps, alpha, w_reg, momentum, K, active, with_energy)
 
 
 def _ptr(t: Optional[torch.Tensor]):

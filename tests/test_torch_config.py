@@ -61,7 +61,7 @@ def test_port_imports_no_jax():
         "import sys, sobfu_tpu_torch, sobfu_tpu_torch.cli, sobfu_tpu_torch.ops.kernels, "
         "sobfu_tpu_torch.mc, sobfu_tpu_torch.io, sobfu_tpu_torch.core, "
         "sobfu_tpu_torch.pyramid, sobfu_tpu_torch.solver, sobfu_tpu_torch.pipeline, "
-        "sobfu_tpu_torch.ops._build\n"
+        "sobfu_tpu_torch.ops._build, sobfu_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sobfu_tpu' or m.startswith('sobfu_tpu.')]\n"
         "assert not bad, bad\n"

@@ -348,3 +348,80 @@ def test_fine_window_pyramid_on_card_matches_cpu(cuda):
     for field in ("psi", "psi_inv", "tsdf_n_psi", "weight_n_psi"):
         np.testing.assert_allclose(getattr(got, field).cpu().numpy(),
                                    getattr(want, field).numpy(), atol=1e-5, err_msg=field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,momentum,with_energy", [(2, 0.95, True), (None, None, False),
+                                                    (1, 0.9, True)])
+def test_gd_iteration_scenes_kernel(cuda, K, momentum, with_energy):
+    """A over three scenes, the middle one inactive, in one launch: within
+    atol 1e-5 of the plain version; each active scene equal to an unbatched
+    A launch bit for bit (norm and energy too); the inactive scene keeps
+    its state and reports 0."""
+    per = [_inputs(cuda, 1.5, seed=20 + s) for s in range(3)]
+    b = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    active = torch.tensor([True, False, True], device=cuda)
+    args = (b["psi"], b["tnp"], b["vel"], b["tg"], b["live"], taps, 0.05, 0.2, momentum, K,
+            active)
+    kernels.reset_launch_counts()
+    got = kernels.gd_iteration_scenes(*args, with_energy=with_energy)
+    assert kernels.launch_counts["gd_iteration_scenes"] == 1
+    want = kernels.gd_iteration_scenes_plain(*args, with_energy=with_energy)
+    for g, w in zip(got[:3], want[:3]):
+        if w is not None:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g, w, atol=0, rtol=1e-5)
+    for s in (0, 2):
+        one = kernels.gd_iteration(b["psi"][s], b["tnp"][s], b["vel"][s], b["tg"][s],
+                                   b["live"][s], taps, 0.05, 0.2, momentum, K,
+                                   with_energy=with_energy)
+        for g, w in zip(got, one):
+            if w is not None:
+                assert torch.equal(g[s], w)
+    assert torch.equal(got[0][1], b["psi"][1]) and torch.equal(got[1][1], b["tnp"][1])
+    assert all(float(o[1]) == 0.0 for o in got[3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_window", [None, 1])
+def test_frame_step_on_card_matches_cpu(cuda, fine_window):
+    """make_frame_step with the tool's windowed configuration (MAX_ITER 16)
+    on two 16^3 scenes: equal iterations and fields within 1e-5 of the
+    same step on the CPU; A runs as gd_iteration_scenes only; scene 0 of
+    the batch equals scene 0 alone bit for bit."""
+    from sobfu_tpu_torch.parallel import make_frame_step
+
+    dims, S = (16, 16, 16), 2
+    rng = np.random.default_rng(7)
+    ident = fields.identity_field(dims).numpy()
+    psi = np.stack([ident + rng.uniform(-0.3, 0.3, ident.shape) for _ in range(S)])
+    tg = np.clip(rng.standard_normal((S,) + dims), -1, 1)
+    dists = rng.uniform(0.35, 0.45, (S, 24, 32))
+    v2c = np.tile(np.eye(4), (S, 1, 1))
+    v2c[:, :3, 3] = (-0.125, -0.125, 0.2)
+    vs = 0.25 / 16
+    taps = solver.sobolev_filter_1d(7, 0.1)
+    scalars = ((20.0, 20.0, 15.5, 11.5), (vs,) * 3, 8 * vs, 3 * vs, 64.0, taps, 0.1, 0.2, 16,
+               1e-3)
+    cfg = dict(inverse_iters=3, warp_window=2, fused=True, taps_static=tuple(taps),
+               momentum=0.95, warm_inverse=True, pyramid_levels=2, stall_window=8,
+               stall_rel=1e-2, fine_window=fine_window)
+
+    def run(dev, s=slice(None)):
+        step = make_frame_step(dims, device=dev, **cfg)
+        t = [torch.as_tensor(a[s], dtype=torch.float32) for a in (psi, tg, np.abs(tg), dists)]
+        return step(t[0], t[1], t[2], t[3], v2c[s], *scalars, t[0])
+
+    kernels.reset_launch_counts()
+    got = run(cuda)
+    assert kernels.launch_counts["gd_iteration_scenes"] > 0
+    assert kernels.launch_counts["gd_iteration"] == 0
+    want = run("cpu")
+    assert got[4].tolist() == want[4].tolist()
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-5)
+    solo = run(cuda, slice(0, 1))
+    for g, o in zip(got, solo):
+        assert torch.equal(g[0].cpu(), o[0].cpu())

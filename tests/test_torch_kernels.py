@@ -1,11 +1,12 @@
-"""The five kernel wrappers of sobfu_tpu_torch.ops.kernels.
+"""The kernel wrappers of sobfu_tpu_torch.ops.kernels.
 
 On the CPU each wrapper runs its plain torch version; these are held to the
 JAX package's XLA references — the same references its own Pallas tests use
 (tests/test_pallas.py: _xla_step, sample_*_window, estimate_inverse_window,
-sample_nearest_floor_window + fuse_volumes). Inputs come from numpy with a
-seed. tests/test_torch_cuda.py holds each kernel to its plain version on a
-CUDA card.
+sample_nearest_floor_window + fuse_volumes) — and to the Pallas entry points
+that kernels A and C serve, run in interpret mode. Inputs come from numpy
+with a seed. tests/test_torch_cuda.py holds each kernel to its plain
+version on a CUDA card.
 """
 
 import jax.numpy as jnp
@@ -164,6 +165,9 @@ def test_cpu_tensors_launch_no_kernel():
     kernels.warp(d["tg"][None], d["psi"], 2, (False,))
     kernels.inverse_fixed_point(d["psi"], 2, None)
     kernels.warp_fuse(d["tg"], d["tg"], d["tnp"], d["live"], d["psi"], 64.0, 2)
+    b = {k: v[None] for k, v in d.items()}
+    kernels.gd_iteration_scenes(b["psi"], b["tnp"], None, b["tg"], b["live"], taps, 0.1, 0.2,
+                                None, 2, torch.tensor([True]), with_energy=True)
     assert kernels.launch_counts == {k: 0 for k in kernels.launch_counts}
 
 
@@ -191,6 +195,134 @@ def test_gd_iteration_plain_energy_matches_data_energy(K):
     want = js.data_energy(jnp.asarray(_np(d["tg"])), jnp.asarray(_np(got[1])))
     np.testing.assert_allclose(float(got[4]), float(want), rtol=1e-5)
     assert len(kernels.gd_iteration(*args)) == 4
+
+
+# ---------------------------------------------------------------------------
+# the TPU entry points A and C serve (ROADMAP Queue 2 items 5, 9, 10, 11),
+# each run in Pallas interpret mode at the shapes of its own tests in
+# tests/test_pallas.py (:44, :93, :220, :518, :562)
+# ---------------------------------------------------------------------------
+
+PALLAS_DIMS = (16, 16, 32)
+
+
+def _plain_step(d, taps, momentum, K=2, alpha=0.05, w_reg=0.2):
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    return kernels.gd_iteration_plain(t["psi"], t["tnp"], t["vel"], t["tg"], t["live"],
+                                      torch.from_numpy(taps), alpha, w_reg, momentum, K)
+
+
+def _assert_step(got, want, momentum):
+    """(psi', tnp', vel', max_sq) of a Pallas entry point against A's plain
+    version: atol 1e-5 on the fields and rtol 1e-4 on the norm, the bounds
+    of the entry points' own tests (the sums run in another order)."""
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-5)
+    if momentum is not None:
+        np.testing.assert_allclose(_np(got[2]), _np(want[2]), atol=1e-5)
+    np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("momentum,x_pad_to", [(None, 0), (0.9, 0), (0.9, 64)])
+def test_fused_gd_iteration_db_matches_plain(momentum, x_pad_to):
+    """fused_gd_iteration_db (:1023, its pallas_call :1208 under
+    fused_gd_iteration_db_padded), unpadded and lane-packed to 64 lanes."""
+    from sobfu_tpu.ops.pallas_kernels import fused_gd_iteration_db, pad_for_db
+
+    d = _inputs(PALLAS_DIMS, seed=3)
+    taps = js.sobolev_filter_1d(7, 0.1)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    got = fused_gd_iteration_db(
+        j["psi"], j["tnp"], j["vel"] if momentum is not None else None,
+        pad_for_db(j["tg"], x_pad_to), pad_for_db(j["live"], x_pad_to),
+        jnp.float32(0.05), jnp.float32(0.2), tuple(float(t) for t in taps),
+        K=2, BZ=8, TY=16, momentum=momentum, interpret=True, x_pad_to=x_pad_to,
+    )
+    _assert_step(got, _plain_step(d, taps, momentum), momentum)
+
+
+def test_fused_gd_step_matches_plain():
+    """fused_gd_step (:1854), the compatibility wrapper over the db kernel."""
+    from sobfu_tpu.ops.pallas_kernels import fused_gd_step
+
+    d = _inputs(PALLAS_DIMS, seed=2)
+    taps = js.sobolev_filter_1d(7, 0.1)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    psi, tnp, mx = fused_gd_step(j["psi"], j["tnp"], j["tg"], j["live"], jnp.float32(0.05),
+                                 jnp.float32(0.2), tuple(float(t) for t in taps), K=2, BZ=4,
+                                 TY=8, interpret=True)
+    _assert_step((psi, tnp, None, mx), _plain_step(d, taps, None), None)
+
+
+@pytest.mark.parametrize("momentum", [None, 0.9])
+def test_fused_gd_iteration_stacked_matches_plain(momentum):
+    """fused_gd_iteration_stacked (:1951, pallas_call :2051)."""
+    from sobfu_tpu.ops.pallas_kernels import _stack_db, fused_gd_iteration_stacked
+
+    d = _inputs(PALLAS_DIMS, seed=11)
+    d["tnp"] = np.array(jf.sample_trilinear_window(jnp.asarray(d["live"]),
+                                                   jnp.asarray(d["psi"]), 2))
+    taps = js.sobolev_filter_1d(7, 0.1)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    got = fused_gd_iteration_stacked(
+        j["psi"], j["tnp"], j["vel"] if momentum is not None else None,
+        _stack_db(j["tg"], TY=16), _stack_db(j["live"], TY=16), jnp.float32(0.05),
+        jnp.float32(0.2), tuple(float(t) for t in taps), K=2, TY=16, momentum=momentum,
+        interpret=True,
+    )
+    _assert_step(got, _plain_step(d, taps, momentum), momentum)
+
+
+@pytest.mark.parametrize("iters,warm", [(6, False), (4, True)])
+def test_estimate_inverse_window_pallas_matches_plain(iters, warm):
+    """estimate_inverse_window_pallas (:1883, step-chained window warps)
+    against C's plain version, cold and warm-started, atol 1e-5."""
+    from sobfu_tpu.ops.pallas_kernels import estimate_inverse_window_pallas
+
+    d = _inputs(PALLAS_DIMS, amp=1.2, seed=3)
+    init = _inputs(PALLAS_DIMS, amp=0.3, seed=4)["psi"] if warm else None
+    got = estimate_inverse_window_pallas(jnp.asarray(d["psi"]), iters=iters, K=2,
+                                         init=None if init is None else jnp.asarray(init),
+                                         interpret=True)
+    want = kernels.inverse_fixed_point(torch.from_numpy(d["psi"]), iters, 2,
+                                       None if init is None else torch.from_numpy(init))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# A over scenes
+# ---------------------------------------------------------------------------
+
+
+def _scenes(S, dims=DIMS, amp=1.5, seed=20):
+    per = [_inputs(dims, amp, seed + s) for s in range(S)]
+    return {k: torch.from_numpy(np.stack([p[k] for p in per])) for k in per[0]}
+
+
+@pytest.mark.parametrize("K,momentum,with_energy", [(2, 0.95, True), (None, None, False),
+                                                    (1, 0.9, False)])
+def test_gd_iteration_scenes_plain_bitwise_vs_unbatched(K, momentum, with_energy):
+    """Each active scene equals gd_iteration on that scene bit for bit
+    (state, norm, energy); the inactive scene keeps psi, tnp and vel and
+    reports 0."""
+    b = _scenes(3)
+    taps = torch.from_numpy(js.sobolev_filter_1d(7, 0.1))
+    active = torch.tensor([True, False, True])
+    out = kernels.gd_iteration_scenes(b["psi"], b["tnp"], b["vel"], b["tg"], b["live"], taps,
+                                      0.05, 0.2, momentum, K, active, with_energy=with_energy)
+    assert len(out) == (5 if with_energy else 4) and out[3].shape == (3,)
+    assert (out[2] is None) == (momentum is None)
+    for s in (0, 2):
+        one = kernels.gd_iteration(b["psi"][s], b["tnp"][s], b["vel"][s], b["tg"][s],
+                                   b["live"][s], taps, 0.05, 0.2, momentum, K,
+                                   with_energy=with_energy)
+        for g, w in zip(out, one):
+            if w is not None:
+                assert torch.equal(g[s], w)
+    assert torch.equal(out[0][1], b["psi"][1]) and torch.equal(out[1][1], b["tnp"][1])
+    if momentum is not None:
+        assert torch.equal(out[2][1], b["vel"][1])
+    assert all(float(o[1]) == 0.0 for o in out[3:])
 
 
 @pytest.mark.parametrize("momentum,with_energy,with_verbose", [(0.95, True, True),
