@@ -16,8 +16,16 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 128^3, K=2, inside and beyond the window): atol 1e-5,
                 bitwise for the floor warp, the fuse and F, and E bit for
                 bit against 16 chained A launches; A over four scenes (see
-                11); median times from CUDA events, B's exact warp also
-                beside torch.nn.functional.grid_sample on the same inputs
+                11); A also on (12, 16, 20), 16^3 and 64^3 with 3 to 11
+                taps; the chunked loop (kernels.GdLoop: 16 iterations per
+                call, the stop test on the card) bit for bit against single
+                launches, with a norm stop inside a chunk and a scene
+                frozen from the start. Two times per kernel: ms, one CUDA
+                event pair around a run of 20 calls (median of 7 runs), and
+                device_ms, torch.profiler's device time per call; A's rows
+                through the chunked loop, per iteration. B's exact warp in
+                turns with torch.nn.functional.grid_sample on the same
+                inputs (B, library, library, B) at +-1.8 and +-3.5 voxels
   4. goldens    the solver on the card against tests/golden/solver_16*.npz
                 (atol 1e-5, the JAX package's frozen CPU results), the
                 pyramid and compositive goldens included
@@ -31,6 +39,9 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 MAX_UPDATE_NORM=4e-3, STALL_WINDOW=16, STALL_REL=1e-2; the
                 multigrid inverse with the half-res carry) at 128^3, 4
                 frames; per frame the wall time, coarse and fine iterations,
+                the host reads of the solve loops (one per chunk of 16
+                iterations or stall check, not one per iteration: at most
+                MAX_ITER / 16 + 2 per level, or the phase fails),
                 why the fine level stopped, and each level's solve timed on
                 its own (ms per iteration); all five kernels must have
                 launched (E on the 64^3 coarse level), psi_inv is carried
@@ -73,12 +84,19 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 an unbatched A launch bit for bit, and times it against
                 four unbatched A launches
 The launch counts of each path are zeroed just before it and read just
-after. The last three lines are the kernel report (JSON; launches summed
-over the paths above that run each kernel; each kernel's time, its plain
-version's, the bound of its work at the shapes timed — the bytes it must
-move at 3.35 TB/s or its float operations at 67 TFLOP/s, whichever is
-larger — and, for B's exact warp, torch.nn.functional.grid_sample's time),
-the nvidia-smi line and {"ok": true, "device": {...}}.
+after; kernel A's count is the iterations that ran on the card (the
+device's counter), its launches after a stop are printed apart. The last
+three lines are the kernel report (JSON; launches summed over the paths
+above that run each kernel; each kernel's ms and device_ms, its plain
+version's time, the bound of its work at the shapes timed — the bytes it
+must move at 3.35 TB/s or its float operations at 67 TFLOP/s, whichever is
+larger — and, for B's exact warp, torch.nn.functional.grid_sample's time;
+B's row carries its K=2 and mixed C=2 variants under "also"), the
+nvidia-smi line and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --kernels
+
+stops after phase 4 (the build, the kernel checks, the goldens).
 
     python3 chip_smoke.py --probe DIR
 
@@ -146,22 +164,48 @@ def tool(name: str):
     return mod
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
+def cuda_ms(fn, reps: int = 20, runs: int = 7, warmup: int = 3) -> float:
+    """Milliseconds per call of fn(): one CUDA event pair around a run of
+    reps calls, elapsed / reps, the median over runs. The calls of a run
+    queue up behind one another, so the host's share of a call (allocations,
+    checks, ctypes) hides behind the device work of the call before it."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The profiler's device time per call of fn(): the self device time of
+    every CUDA activity (kernels, memsets, copies) of reps calls under
+    torch.profiler, over reps. Where a call is several kernels it is their
+    sum; host gaps between them are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device_us = tool("profile_torch_frame")._device_us
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_us(e) for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", "")))
+    check(total > 0, "torch.profiler recorded no device time")
+    return total / reps * 1e-3
 
 
 def gd_ops(n_taps: int, window: bool, momentum: bool, energy: bool) -> int:
@@ -190,11 +234,34 @@ def bound(n_bytes: int, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def row(err, ms, plain_ms, n_bytes, ops, library_ms=None) -> dict:
-    """One kernel's entries of the report line."""
+def timed(fn) -> dict:
+    """A kernel call's two times: {"ms": cuda_ms, "device_ms": device_ms}."""
+    return {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+
+
+def timed_chunks(kernels, name, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K) -> dict:
+    """Kernel A as the solve loops run it: chunks of GD_CHUNK iterations
+    through kernels.GdLoop (one call and one host read a chunk, the stop test
+    on the card, never met here), per iteration. Operands carry the scene
+    axis."""
+    loop = kernels.GdLoop(name, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, -1.0)
+    on = np.ones(psi.shape[0], bool)
+    n = kernels.GD_CHUNK
+    return {"ms": cuda_ms(lambda: loop.run(n, on), reps=4) / n,
+            "device_ms": device_ms(lambda: loop.run(n, on), reps=4) / n}
+
+
+def plain_ms(fn) -> float:
+    """A plain version's time (many small torch launches): short runs."""
+    return cuda_ms(fn, reps=3, runs=3, warmup=1)
+
+
+def row(err, times, plain, n_bytes, ops, library_ms=None) -> dict:
+    """One kernel's entries of the report line; times is :func:`timed`'s."""
     bound_ms, bound_by = bound(n_bytes, ops)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    return {"max_abs_err": err, "ms": times["ms"], "device_ms": times["device_ms"],
+            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def max_abs(a, b) -> float:
@@ -248,13 +315,19 @@ def check_kernels(torch, kernels, fields, solver):
             f"rel d(max_sq)={e_norm:.3e}")
         check(e <= 1e-5 and e_norm <= 1e-5, "gd_iteration disagrees with its plain version")
         errs.append(e)
+    errs.append(check_gd_shapes(torch, kernels, solver))
     args = (psi_w, tnp, vel, tg, live, taps, alpha, w_reg, None, 2)
-    ms = cuda_ms(lambda: kernels.gd_iteration(*args), 50)
-    plain = cuda_ms(lambda: kernels.gd_iteration_plain(*args), 10)
+    times = timed_chunks(kernels, "gd_iteration", *(a[None] for a in args[:2]),
+                         *(a[None] for a in args[3:5]), *args[5:])
+    single = timed(lambda: kernels.gd_iteration(*args))
+    log("kernels", f"gd_iteration as one call per iteration (fresh outputs each call): "
+        f"{single['ms']:.4f} ms, {single['device_ms']:.4f} ms device")
+    plain = plain_ms(lambda: kernels.gd_iteration_plain(*args))
     n = tg.numel()
-    results["gd_iteration"] = row(max(errs), ms, plain,
+    results["gd_iteration"] = row(max(errs), times, plain,
                                   nbytes(psi_w, tnp, tg, live, *kernels.gd_iteration(*args)[:2]),
                                   n * gd_ops(TAPS, True, False, False))
+    check_gd_chunks(torch, kernels, fields, solver)
 
     # B: warp (trilinear, floor, mixed)
     errs = []
@@ -270,19 +343,40 @@ def check_kernels(torch, kernels, fields, solver):
             check(e <= 1e-5 and bit, "warp disagrees with its plain version")
             errs.append(e)
     vol1 = tg[None].contiguous()
-    ms = cuda_ms(lambda: kernels.warp(vol1, psi_w, 2, (False,)), 50)
-    plain = cuda_ms(lambda: kernels.warp_plain(vol1, psi_w, 2, (False,)), 10)
-    log("kernels", f"warp K=2, one channel: {ms:.4f} ms kernel, {plain:.4f} ms plain (median)")
-    # the report's row: the exact warp, the function one library call computes
-    ms = cuda_ms(lambda: kernels.warp(vol1, psi_x, None, (False,)), 50)
-    plain = cuda_ms(lambda: kernels.warp_plain(vol1, psi_x, None, (False,)), 10)
-    lib, lib_err = library_warp(torch, tg, psi_x, kernels.warp(vol1, psi_x, None, (False,))[0])
-    library_ms = cuda_ms(lib, 50)
-    log("kernels", f"warp exact: torch.nn.functional.grid_sample {library_ms:.4f} ms (the "
-        f"library yardstick, never called by the port), max|d| from B {lib_err:.3e}")
-    check(lib_err <= 1e-4, "grid_sample does not compute B's exact warp")
-    results["warp"] = row(max(errs), ms, plain, nbytes(vol1, psi_x, vol1),
-                          n * (TAPS_OPS["exact"] + TRILINEAR_OPS), library_ms)
+    vol2 = torch.stack([tg, wgc]).contiguous()
+    also = {}
+    for label, vol, floor, ops in (
+        ("K=2, one channel", vol1, (False,), TAPS_OPS["window"] + TRILINEAR_OPS),
+        # window_warp_pallas_mixed: the tails' warp, a trilinear and a floor channel
+        ("K=2, mixed C=2", vol2, (False, True), TAPS_OPS["window"] + TRILINEAR_OPS + FLOOR_OPS),
+    ):
+        r = row(max(errs), timed(lambda: kernels.warp(vol, psi_w, 2, floor)),
+                plain_ms(lambda: kernels.warp_plain(vol, psi_w, 2, floor)),
+                nbytes(vol, psi_w, vol), n * ops)
+        log("kernels", f"warp {label}: {r['ms']:.4f} ms kernel, {r['device_ms']:.4f} ms device, "
+            f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        also[label] = r
+    # the report's row: the exact warp, the function one library call computes;
+    # B and the library call in turns (B, library, library, B) at psi_x and psi_w
+    for label, psi in (("psi_w (+-1.8 voxels)", psi_w), ("psi_x (+-3.5 voxels)", psi_x)):
+        lib, lib_err = library_warp(torch, tg, psi, kernels.warp(vol1, psi, None, (False,))[0])
+        check(lib_err <= 1e-4, "grid_sample does not compute B's exact warp")
+
+        def b_call(psi=psi):
+            return kernels.warp(vol1, psi, None, (False,))
+
+        turns = [timed(b_call), timed(lib), timed(lib), timed(b_call)]
+        log("kernels", f"warp exact at {label}, in turns B / grid_sample / grid_sample / B: ms "
+            + " / ".join(f"{t['ms']:.4f}" for t in turns) + "; device ms "
+            + " / ".join(f"{t['device_ms']:.4f}" for t in turns)
+            + f" (the library yardstick, never called by the port; max|d| from B {lib_err:.3e})")
+    b_times = {k: min(turns[0][k], turns[3][k]) for k in ("ms", "device_ms")}
+    plain = plain_ms(lambda: kernels.warp_plain(vol1, psi_x, None, (False,)))
+    results["warp"] = row(max(errs), b_times, plain, nbytes(vol1, psi_x, vol1),
+                          n * (TAPS_OPS["exact"] + TRILINEAR_OPS),
+                          min(turns[1]["ms"], turns[2]["ms"]))
+    results["warp"]["library_device_ms"] = min(turns[1]["device_ms"], turns[2]["device_ms"])
+    results["warp"]["also"] = also
 
     # C: inverse fixed point (warm 3 steps in the window, 48 exact from identity)
     errs = []
@@ -296,11 +390,11 @@ def check_kernels(torch, kernels, fields, solver):
             f"warm={init is not None}: max|d|={e:.3e}")
         check(e <= 1e-5, "inverse_fixed_point disagrees with its plain version")
         errs.append(e)
-    ms = cuda_ms(lambda: kernels.inverse_fixed_point(psi_small, 3, 2, warm), 50)
-    plain = cuda_ms(lambda: kernels.inverse_fixed_point_plain(psi_small, 3, 2, warm), 10)
+    times = timed(lambda: kernels.inverse_fixed_point(psi_small, 3, 2, warm))
+    plain = plain_ms(lambda: kernels.inverse_fixed_point_plain(psi_small, 3, 2, warm))
     # per step: the taps, three trilinear channels, identity minus the sample
     results["inverse_fixed_point"] = row(
-        max(errs), ms, plain, nbytes(psi_small, warm, psi_small),
+        max(errs), times, plain, nbytes(psi_small, warm, psi_small),
         n * (3 + 3 * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + 3)))
 
     # D: warp_fuse, bitwise
@@ -316,10 +410,10 @@ def check_kernels(torch, kernels, fields, solver):
         check(bit, "warp_fuse is not bit-identical to its plain version")
         errs.append(e)
     args = (tg, wgc, tnp_q, wnc, psi_w, 128.0, 2)
-    ms = cuda_ms(lambda: kernels.warp_fuse(*args), 50)
-    plain = cuda_ms(lambda: kernels.warp_fuse_plain(*args), 10)
+    times = timed(lambda: kernels.warp_fuse(*args))
+    plain = plain_ms(lambda: kernels.warp_fuse_plain(*args))
     # the floor sample, then the fuse's multiply-add, two additions, a division, a clamp
-    results["warp_fuse"] = row(max(errs), ms, plain, nbytes(tg, wgc, tnp_q, wnc, psi_w, tg, wgc),
+    results["warp_fuse"] = row(max(errs), times, plain, nbytes(tg, wgc, tnp_q, wnc, psi_w, tg, wgc),
                                n * (FLOOR_OPS + 6))
     # A's stall energy (the fine level's check iterations)
     args = (psi_w, tnp, vel, tg, live, taps, alpha, w_reg, 0.95, 2)
@@ -329,8 +423,9 @@ def check_kernels(torch, kernels, fields, solver):
     same = bitwise(e_got, kernels.gd_iteration(*args, with_energy=True)[4])
     log("kernels", f"gd_iteration energy: rel d={e_rel:.3e} same bits on a rerun={same}")
     check(e_rel <= 1e-5 and same, "gd_iteration's energy disagrees with its plain version")
-    ms_e = cuda_ms(lambda: kernels.gd_iteration(*args, with_energy=True), 50)
-    log("kernels", f"gd_iteration with energy: {ms_e:.4f} ms (median, 128^3, K=2)")
+    t_e = timed(lambda: kernels.gd_iteration(*args, with_energy=True))
+    log("kernels", f"gd_iteration with energy: {t_e['ms']:.4f} ms, {t_e['device_ms']:.4f} ms "
+        "device (128^3, K=2, momentum 0.95)")
 
     results["gd_multi"] = check_gd_multi(torch, kernels, fields, solver)
 
@@ -348,10 +443,10 @@ def check_kernels(torch, kernels, fields, solver):
         check(bit, "compose_weight is not bit-identical to its plain version")
         errs.append(e)
     g1 = ident + t(rng.uniform(-0.95, 0.95, (3,) + dims))
-    ms = cuda_ms(lambda: kernels.compose_weight(psi0, g1, wnc, 1, 2), 50)
-    plain = cuda_ms(lambda: kernels.compose_weight_plain(psi0, g1, wnc, 1, 2), 10)
+    times = timed(lambda: kernels.compose_weight(psi0, g1, wnc, 1, 2))
+    plain = plain_ms(lambda: kernels.compose_weight_plain(psi0, g1, wnc, 1, 2))
     results["compose_weight"] = row(
-        max(errs), ms, plain, nbytes(psi0, g1, wnc, psi0, wnc),
+        max(errs), times, plain, nbytes(psi0, g1, wnc, psi0, wnc),
         n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + FLOOR_OPS))
 
     # B on three channels: warp_field3 at K=2 inside and beyond the window
@@ -364,9 +459,9 @@ def check_kernels(torch, kernels, fields, solver):
             f"max|d|={e:.3e}")
         check(e <= 1e-5, "warp_field3 disagrees with its plain version")
         errs.append(e)
-    ms = cuda_ms(lambda: kernels.warp_field3(field, psi_w, 2), 50)
-    plain = cuda_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2), 10)
-    results["warp_field3"] = row(max(errs), ms, plain, nbytes(field, psi_w, field),
+    times = timed(lambda: kernels.warp_field3(field, psi_w, 2))
+    plain = plain_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2))
+    results["warp_field3"] = row(max(errs), times, plain, nbytes(field, psi_w, field),
                                  n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS))
 
     results["gd_iteration_scenes"] = check_gd_iteration_scenes(torch, kernels, fields, solver)
@@ -375,9 +470,144 @@ def check_kernels(torch, kernels, fields, solver):
              "compose_weight": "128^3, Kf=1, Kw=2", "warp": "128^3, exact, one channel",
              "gd_iteration_scenes": "4 scenes of 128^3, K=2, momentum 0.95"}
     for name, r in results.items():
-        log("kernels", f"{name}: {r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms plain, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']} (median, {where.get(name, '128^3, K=2')})")
+        log("kernels", f"{name}: {r['ms']:.4f} ms kernel (a run of 20 calls between one event "
+            f"pair, median of 7), {r['device_ms']:.4f} ms device (profiler), {r['plain_ms']:.4f} "
+            f"ms plain, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({where.get(name, '128^3, K=2')})")
     return results
+
+
+def gd_inputs(torch, dims, seed, amp, scenes=None):
+    """Random operands of kernel A on the card: psi within amp voxels of the
+    identity, standard-normal volumes scaled 0.3, velocities scaled 0.1;
+    with scenes = S a leading scene axis."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    lead = () if scenes is None else (scenes,)
+    ident = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")[::-1])
+    arrays = dict(
+        psi=ident + rng.uniform(-amp, amp, lead + (3,) + dims),
+        tnp=rng.standard_normal(lead + dims) * 0.3,
+        vel=rng.standard_normal(lead + (3,) + dims) * 0.1,
+        tg=rng.standard_normal(lead + dims) * 0.3,
+        live=rng.standard_normal(lead + dims) * 0.3,
+    )
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32), device=dev)
+            for k, v in arrays.items()}
+
+
+def check_gd_shapes(torch, kernels, solver) -> float:
+    """Kernel A against its plain version on the other grids the port runs
+    — the parity grid (12, 16, 20), the goldens' 16^3 and the coarse
+    level's 64^3 — with every tap count its template takes, windowed and
+    exact, with and without momentum (atol 1e-5 on the state, rtol 1e-5 on
+    the norm and the energy). Returns the largest state difference."""
+    worst = 0.0
+    for dims, s, K, mu in (((12, 16, 20), 7, 2, 0.9), ((12, 16, 20), 3, None, None),
+                           ((12, 16, 20), 11, 1, 0.95), ((12, 16, 20), 5, 2, None),
+                           ((12, 16, 20), 9, None, 0.9), ((16, 16, 16), 7, 2, None),
+                           ((16, 16, 16), 7, None, 0.95), ((64, 64, 64), 7, 1, 0.95)):
+        d = gd_inputs(torch, dims, 11, 1.5)
+        taps = torch.as_tensor(solver.sobolev_filter_1d(s, LAMBDA), device=d["psi"].device)
+        args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, mu, K)
+        got = kernels.gd_iteration(*args, with_energy=True)
+        ref = kernels.gd_iteration_plain(*args, with_energy=True)
+        e = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
+        rel = max(abs(float(g) - float(r)) / max(abs(float(r)), 1e-30)
+                  for g, r in zip(got[3:], ref[3:]))
+        plan = kernels.gd_tile_plan(dims, s, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+        log("kernels", f"gd_iteration {'x'.join(map(str, dims))} taps={s} K={K} momentum={mu}: "
+            f"max|d|={e:.3e} rel d(max_sq, energy)={rel:.3e}; {plan['blocks']} blocks of "
+            f"{plan['TY']}x32 x {plan['LZ']} planes, {plan['shared_bytes']} B shared")
+        check(e <= 1e-5 and rel <= 1e-5, "gd_iteration disagrees with its plain version")
+        worst = max(worst, e)
+    return worst
+
+
+def check_gd_chunks(torch, kernels, fields, solver, dims=(64, 64, 64)):
+    """The chunked entry point (kernels.GdLoop, n iterations per call with
+    the stop test on the card) against n one-iteration launches with the
+    stop test on the host, bit for bit: state, norm rows, the iterations
+    each scene ran, the energy. At 64^3, 7 taps, K=2: one scene whose norm
+    stop falls inside a chunk of 16; three scenes with momentum 0.5, one
+    frozen from the start, one stopping inside the chunk, with the energy
+    of the last iteration; then a second chunk from the state the first
+    left (the buffers' parity differs between scenes)."""
+    n = 16
+    dev = torch.device(DEVICE)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(TAPS, LAMBDA), device=dev)
+
+    def reference(b, mu, thresh, active, n, with_energy):
+        """n gd_iteration_scenes launches, the host deciding who runs."""
+        psi, tnp, vel = b["psi"], b["tnp"], b["vel"] if mu is not None else None
+        S = psi.shape[0]
+        on = np.asarray(active, bool).copy()
+        done, rows, e = np.zeros(S, np.int32), np.zeros((n, S), np.float32), None
+        for k in range(n):
+            if k:
+                on &= np.sqrt(rows[k - 1]) > np.float32(thresh)
+            if not on.any():
+                break
+            last = with_energy and k == n - 1
+            out = kernels.gd_iteration_scenes(psi, tnp, vel, b["tg"], b["live"], taps, 0.05, 0.2,
+                                              mu, 2, torch.as_tensor(on, device=dev), last)
+            psi, tnp, vel = out[:3]
+            rows[k] = out[3].cpu().numpy()
+            done += on
+            if last:
+                e = out[4].cpu().numpy()
+        return dict(b, psi=psi, tnp=tnp, vel=vel), done, rows, e
+
+    def compare(label, b, mu, thresh, active, with_energy, chunks=1):
+        loop = kernels.GdLoop("gd_iteration_scenes", b["psi"], b["tnp"], b["tg"], b["live"],
+                              taps, 0.05, 0.2, mu, 2, thresh, energy=with_energy)
+        ref = b
+        for chunk in range(chunks):
+            got = loop.run(n, active, with_energy)
+            ref, *want = reference(ref, mu, thresh, active, n, with_energy)
+            psi, tnp, vel = loop.state()
+            same = (bitwise(psi, ref["psi"]) and bitwise(tnp, ref["tnp"])
+                    and (mu is None or bitwise(vel, ref["vel"]))
+                    and all(np.array_equal(g, w) for g, w in zip(got, want) if w is not None))
+            log("kernels", f"gd chunk {label}, chunk {chunk}: iterations run {got[0].tolist()} "
+                f"of {n}, bit for bit with {n} single launches {same}")
+            check(same, f"the chunked gd loop differs from single launches ({label})")
+            active = active & (got[0] == n)
+        return got
+
+    def stop_at(norms):
+        """The last of the first 13 iterations whose norm is under every
+        earlier one: a threshold of that norm stops the scene just there."""
+        return max(k for k in range(13) if k == 0 or norms[k] < norms[:k].min())
+
+    # one scene, no momentum
+    b = gd_inputs(torch, dims, 21, 1.5, scenes=1)
+    _, _, rows, _ = reference(b, None, -1.0, np.ones(1, bool), n, False)
+    norms = np.sqrt(rows[:, 0])
+    j = stop_at(norms)
+    kernels.reset_launch_counts()
+    done = compare(f"one scene, norm stop after iteration {j + 1}", b, None, float(norms[j]),
+                   np.ones(1, bool), False)[0]
+    check(int(done[0]) == j + 1, "the chunk did not stop where the norm fell under the threshold")
+    check(kernels.launch_counts["gd_iteration_scenes"] == 2 * (j + 1)
+          and kernels.empty_launches["gd_iteration_scenes"] == n - j - 1
+          and kernels.host_reads["gd_iteration_scenes"] == 1,
+          "the chunk's iteration, empty-launch and host-read counts")
+    # three scenes, momentum: scene 1 frozen from the start, scene 2 stops early
+    b = gd_inputs(torch, dims, 22, 1.5, scenes=3)
+    b["vel"].zero_()  # a solve starts from rest
+    ident = fields.identity_field(dims, device=dev)
+    b["psi"][2] = ident + 0.3 * (b["psi"][2] - ident)  # smaller updates than scene 0's
+    active = np.array([True, False, True])
+    _, _, rows, _ = reference(b, 0.5, -1.0, active, n, False)
+    norms = np.sqrt(rows[:, 2])
+    log("kernels", "gd chunk norms of scenes 0 and 2 over 16 iterations: "
+        + ", ".join(f"{a:.4f}/{c:.4f}" for a, c in zip(np.sqrt(rows[:, 0]), norms)))
+    compare(f"three scenes, momentum 0.5, scene 1 frozen, scene 2 stopping after iteration "
+            f"{stop_at(norms) + 1}", b, 0.5, float(norms[stop_at(norms)]), active, True,
+            chunks=2)
+    kernels.reset_launch_counts()
 
 
 def library_warp(torch, vol, psi, want):
@@ -451,15 +681,20 @@ def check_gd_iteration_scenes(torch, kernels, fields, solver):
     check(bit, "gd_iteration_scenes is not bit-identical to unbatched gd_iteration per scene")
     check(kept, "gd_iteration_scenes changed an inactive scene")
     on = torch.ones(S, dtype=torch.bool, device=dev)
-    ms = cuda_ms(lambda: kernels.gd_iteration_scenes(*args, on), 50)
-    one = cuda_ms(lambda: kernels.gd_iteration(*(b[k][0] for k in ("psi", "tnp", "vel", "tg",
-                                                                  "live")),
-                                               taps, 0.05, 0.2, 0.95, 2), 50)
-    plain = cuda_ms(lambda: kernels.gd_iteration_scenes_plain(*args, on), 5)
-    log("kernels", f"gd_iteration_scenes: {ms:.4f} ms per batched iteration of {S} scenes, "
-        f"unbatched A {one:.4f} ms x {S} = {S * one:.4f} ms (ratio {ms / (S * one):.4f})")
+    times = timed_chunks(kernels, "gd_iteration_scenes", b["psi"], b["tnp"], b["tg"], b["live"],
+                         taps, 0.05, 0.2, 0.95, 2)
+    one = timed_chunks(kernels, "gd_iteration", *(b[k][:1] for k in ("psi", "tnp", "tg", "live")),
+                       taps, 0.05, 0.2, 0.95, 2)
+    single = timed(lambda: kernels.gd_iteration_scenes(*args, on))
+    log("kernels", f"gd_iteration_scenes as one call per iteration: {single['ms']:.4f} ms, "
+        f"{single['device_ms']:.4f} ms device")
+    plain = plain_ms(lambda: kernels.gd_iteration_scenes_plain(*args, on))
+    for k in ("ms", "device_ms"):
+        log("kernels", f"gd_iteration_scenes {k}: {times[k]:.4f} per batched iteration of {S} "
+            f"scenes, unbatched A {one[k]:.4f} x {S} = {S * one[k]:.4f} (ratio "
+            f"{times[k] / (S * one[k]):.4f})")
     out = kernels.gd_iteration_scenes(*args, on)
-    return row(err, ms, plain, nbytes(*b.values(), *out[:3]),
+    return row(err, times, plain, nbytes(*b.values(), *out[:3]),
                S * ident[0].numel() * gd_ops(TAPS, True, True, False))
 
 
@@ -516,13 +751,14 @@ def check_gd_multi(torch, kernels, fields, solver):
     )
     log("kernels", f"gd_multi vs 16 chained gd_iteration: bitwise={bit}")
     check(bit, "gd_multi is not bit-identical to 16 chained gd_iteration launches")
-    ms = cuda_ms(lambda: kernels.gd_multi(*args), 20)
-    ms_a = cuda_ms(chained, 20)
-    plain = cuda_ms(lambda: kernels.gd_multi_plain(*args), 5)
-    log("kernels", f"gd_multi 16 iterations at 64^3: {ms:.4f} ms one launch, "
-        f"{ms_a:.4f} ms 16 chained gd_iteration (with energy), {plain:.4f} ms plain")
+    times = timed(lambda: kernels.gd_multi(*args))
+    t_a = {"ms": cuda_ms(chained, reps=5), "device_ms": device_ms(chained, reps=5)}
+    plain = plain_ms(lambda: kernels.gd_multi_plain(*args))
+    log("kernels", f"gd_multi 16 iterations at 64^3: {times['ms']:.4f} ms one launch "
+        f"({times['device_ms']:.4f} ms device), 16 chained gd_iteration (with energy) "
+        f"{t_a['ms']:.4f} ms ({t_a['device_ms']:.4f} ms device), {plain:.4f} ms plain")
     out = kernels.gd_multi(*args)
-    return row(max(errs), ms, plain,
+    return row(max(errs), times, plain,
                nbytes(psi, tnp, vel, tg, live, out.psi, out.tnp, out.vel, out.mx_sq),
                16 * tg.numel() * gd_ops(TAPS, True, True, False))
 
@@ -587,7 +823,9 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
     fusion.need_inv_warps = False  # the no-log frame loop, as the CLI runs it
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    max_reads = 0
     for i, depth in enumerate(frames):
+        reads0 = sum(kernels.host_reads.values())
         with StageClock((solver, "estimate_psi")) as clock:
             t0 = time.perf_counter()
             fusion(depth)
@@ -612,9 +850,11 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
         log(
             phase,
             f"frame {i}: {dt:.4f} s, iters {res.iters} (coarse {res.coarse_iters}, "
-            f"fine {fine}), fine level stopped on {why}, final max-norm "
+            f"fine {fine}), {sum(kernels.host_reads.values()) - reads0} host reads of kernel "
+            f"A's loops, fine level stopped on {why}, final max-norm "
             f"{res.max_norm:.6e}; {levels} (the coarsest first, the fine level last)",
         )
+        max_reads = max(max_reads, sum(kernels.host_reads.values()) - reads0)
         if after is not None:
             after(i, fusion)
     counts = dict(kernels.launch_counts)
@@ -623,7 +863,13 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
         fusion.phi_global.voxel_sizes(), pose=fusion.phi_global.pose,
     )
     torch.cuda.synchronize()
-    log(phase, f"launch counts {counts}; phi_global mesh {mesh.n_triangles} triangles")
+    log(phase, f"launch counts {counts}; kernel A's loops: host reads "
+        f"{dict(kernels.host_reads)}, launches after the stop {dict(kernels.empty_launches)}; "
+        f"phi_global mesh {mesh.n_triangles} triangles")
+    # one read per chunk of GD_CHUNK iterations (and per stall check), not per iteration
+    levels = max(1, params.pyramid_levels)
+    check(max_reads <= levels * (params.max_iter // kernels.GD_CHUNK + 2),
+          f"{phase}: {max_reads} host reads in a frame")
     for name in expect:
         check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
     state = (fusion.phi_global.tsdf, fusion.phi_global.weight, fusion.psi.data,
@@ -796,6 +1042,7 @@ def run_multiscene(torch, kernels, S, n_frames, phase):
     iters, secs, prev = [], [], state
     for i in range(1, n_frames + 1):
         prev = state
+        reads0 = kernels.host_reads["gd_iteration_scenes"]
         with StageClock((sharding, "_gd_loop_scenes")) as clock:
             t0 = time.perf_counter()
             out = step(state[0], state[1], state[2], frames[i], v2c, *scalars, state[3])
@@ -811,10 +1058,12 @@ def run_multiscene(torch, kernels, S, n_frames, phase):
             f"{1e3 * sec:.4f} ms ({1e3 * sec / max(int(res[2].max()), 1):.4f} ms each)"
             for _, shape, res, sec in clock.calls)
         log(phase, f"frame {i}: {dt:.4f} s; coarse iterations {coarse.tolist()}, fine "
-            f"{fine.tolist()}; {levels}")
+            f"{fine.tolist()}, {kernels.host_reads['gd_iteration_scenes'] - reads0} host reads; "
+            f"{levels}")
     counts = dict(kernels.launch_counts)
     log(phase, f"{S} scenes x {n_frames} frames in {sum(secs):.4f} s: "
-        f"{S * n_frames / sum(secs):.4f} scene-frames/s; launch counts {counts}")
+        f"{S * n_frames / sum(secs):.4f} scene-frames/s; launch counts {counts}; launches "
+        f"after the stop {kernels.empty_launches['gd_iteration_scenes']}")
     return dict(counts=counts, state=state, iters=iters, secs=secs, step=step, prev=prev,
                 last=(frames[n_frames], v2c, scalars))
 
@@ -1035,6 +1284,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of sobfu_tpu_torch on one CUDA card")
     ap.add_argument("--probe", metavar="DIR",
                     help="run the drift witness and the compositive profiles instead")
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after the build, the kernel checks and the goldens")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1064,6 +1315,8 @@ def main(argv=None) -> int:
         return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
+    if args.kernels:
+        return 0
 
     path_kernels = ("gd_iteration", "warp", "inverse_fixed_point", "warp_fuse")
     pyramid_kernels = path_kernels + ("gd_multi",)

@@ -1,4 +1,5 @@
-// Kernel A: one Sobolev gradient-descent iteration of the warp-field solve.
+// Kernel A: Sobolev gradient-descent iterations of the warp-field solve, one
+// launch per iteration, n iterations per call with the stop test on the card.
 //
 // Replaces sobfu_tpu/ops/pallas_kernels.py fused_gd_iteration_pp (:2443,
 // body _make_pp_kernel :2155) and the same computation in its other TPU
@@ -19,98 +20,313 @@
 //   e     = 0.5 * sum (tg - tnp')^2                 (optional: the stall
 //           detector's data energy, fused_gd_iteration_pp with_energy)
 //
-// Two launches, three with the energy. gd_potential writes dU to a scratch
-// field; gd_update reads it back for the three axis convolutions (each
-// output needs dU over a +-r cross, which crosses block boundaries), then
-// updates, re-warps and reduces. psi' and tnp' go to the other buffers of a
-// ping-pong pair: neighbouring blocks still read psi for the Laplacian. The
-// energy is reduced deterministically: each block writes its tile's sum to
-// a partials array, and one block adds the partials in a fixed order
-// (gd_step.cuh) — no float atomics, so a stall decision is the same on
-// every run. The bodies live in gd_step.cuh, shared with kernel E.
+// Bound on the H100: memory (at 128^3 84 MB must move: psi, tnp, tg, live in;
+// psi', tnp' out; 0.025 ms at 3.35 TB/s). What the kernel pays beyond it is
+// the convolution's 21 taps per channel and the dU they read. Design
+// (gd_fused_kernel): dU never reaches device memory.
+//   - A block owns a tile of 8 x 32 (y, x) voxels, one a thread, and marches
+//     a segment of LZ planes along z. Shared memory holds a ring of n_taps
+//     + 1 planes of dU (3 channels), each the tile plus a halo of r = n_taps
+//     / 2 on its four sides (the corners are never read: the smoothing is a
+//     sum of three 1-D passes). Per step the block computes dU of plane p
+//     into the slot that plane p - n_taps - 1 has left, and finishes the
+//     voxels of plane p - r - 1, whose 2r + 1 planes are complete: the x and
+//     y taps from that plane's halo, the z taps from the ring, then the
+//     step, psi', the live gather and the norm. One __syncthreads() per
+//     plane: the spare slot lets the fill of one plane overlap the reads of
+//     the one before.
+//   - dU on the halo is recomputed by the block from psi and tnp (served by
+//     L1/L2). Planes outside the segment (the z halo) fill the tile only,
+//     planes inside it the cross: 256 + 80 r positions for 256 voxels. The
+//     replicate edge is applied once, before the march: each thread clamps
+//     its own voxel and its share of the halo into the grid and keeps their
+//     offsets, so a position outside the grid holds dU of the clamped voxel
+//     and the taps index without clamps.
+//   - n_taps is a template parameter (the taps sit in registers, the tap
+//     loops unroll); voxel arithmetic is 32-bit inside a channel, 64 bits
+//     only for the scene and channel bases; any (Z, Y, X) is taken, tiles
+//     over the grid's edge are masked.
+//   - The arithmetic is csrc/gd_step.cuh's, shared with kernel E's
+//     global-memory bodies, in the same order: psi', tnp', vel' and the norm
+//     equal E's chained result bit for bit.
+// Measured on an H100 80GB HBM3 at 700 W, device time per iteration at
+// 128^3, 7 taps, K=2 (torch.profiler): the two launches this replaces 0.155
+// ms (0.158 with momentum); this kernel 0.114 ms (0.122) with LZ = 16: 512
+// blocks, four an SM, 64 registers, no spills, 51,072 bytes of shared
+// memory a block. What was tried, in the order of the kernel's forms.
+// First form (positions decoded and clamped per plane, every load indexed
+// from the voxel index, 0.122-0.134 ms): LZ 8 / 16 / 32 gives 0.144 / 0.134
+// / 0.180 and a tile of 4 or 16 rows 0.175 / 0.171 — fewer, longer segments
+// recompute less of the z halo but leave SMs short of blocks. Capping a
+// block's shared memory so that 3, 2, 1 blocks fit an SM instead of 4:
+// 0.158 / 0.202 / 0.348 against 0.139 at LZ 8 — the march is a chain of
+// dependent steps, and the blocks in flight hide its latency. A ring of
+// n_taps slots with two barriers a plane (44,688 bytes, 5 blocks an SM): no
+// gain (0.138 against 0.140). prefetch.global.L2 of the planes one to six
+// steps ahead: 3% at LZ 16, 18% at LZ 32, never under the best without it.
+// This form (the fill positions hoisted out of the march, loads addressed
+// by pointer strides): 0.122 to 0.109. Asking for the voxel's psi and
+// velocity before the fill instead of after the taps: 0.127 to 0.122 with
+// momentum, 0.026 to 0.024 at 64^3. The SASS (cuobjdump) has ~200
+// instructions per dU position (29 loads, 49 float operations, the rest
+// address arithmetic) times 2.3 positions a voxel, and ~460 per finished
+// voxel. cp.async / TMA staging of psi and tnp was not tried: it would add
+// ~40 KB of shared memory a block and halve the blocks in flight.
 //
-// Bound on the H100: memory. At 128^3 gd_potential moves ~67 MB (psi,
-// tnp, tg in; dU out) and gd_update ~92 MB of compulsory traffic (dU, psi
-// in; the live gather; psi', tnp' out). gd_potential runs near the
-// bandwidth bound; gd_update is bound by its 63 convolution taps per voxel,
-// gathered along y and z and re-read from L2 (H100 SXM 80 GB at 700 W:
-// 29.9 us and 122.9 us per launch). Design: one thread per voxel, x
-// fastest, so every volume pass is coalesced. Staging the convolution halo
-// in shared memory, and fusing the two launches through it, is later work.
+// The stop test on the card (sobfu_gd_iterations): one call enqueues n
+// launches on a ping-pong pair of state buffers. Row k of ctl holds, per
+// scene, the iterations done before launch k (c >= 0: running; -(c + 1):
+// frozen). Launch k runs scene s iff it is running and, for k > 0, launch
+// k - 1's max norm passes the predicate sqrt(max_sq) > thresh — evaluated
+// with __fsqrt_rn, the correctly rounded f32 root torch.sqrt and numpy
+// return, so it is the host's test bit for bit; every block evaluates it
+// from the same two words, and block 0 of the scene writes row k + 1. A
+// frozen scene's blocks leave at once and write nothing (in the one-call
+// form of kernels.gd_iteration_scenes they copy the scene's state through
+// instead, as a false while_loop predicate does under jax.vmap). Iteration
+// c reads buffer c & 1 and writes the other, so a scene's result lies in
+// buffer (iterations done) & 1 whenever it stopped. Each launch has its own
+// max norm row (zeroed once per call), as kernel E has. The host reads ctl
+// row n, the norm rows and the energy once per call.
+//
+// The energy is not reduced by the fused kernel: a 3-D tile visits voxels
+// in another order than kernel E's tiles of 256 consecutive voxels, whose
+// fixed-order sum E's energy rows are held to bit for bit. Where the energy
+// is asked for (the last launch of a call that ends on a stall check), a
+// second pass reads tg and tnp' back and forms E's tile partials
+// (energy_partials_kernel, then energy_final_kernel): two small launches on
+// one iteration in stall_window, no float atomics, the same bits on every
+// run.
 //
 // Scenes: one entry point takes S >= 1 scenes as grid dimension y. Scene s
-// reads and writes its slice of every volume (base offsets s*N and s*3N)
-// through the same bodies, so scene s of a batch equals a one-scene launch
-// on it bit for bit. A scene whose predicate is false (active[s] == 0) keeps
-// its state, as the vmapped while_loop does: its tiles copy psi, tnp and vel
-// through and report max_sq[s] = 0 (and a zero energy). One scene with no
-// active mask (the unbatched A) runs the kScenes = false instantiation of
-// the same kernels, with the scene index a constant 0: on the H100 the
-// scene offsets and mask test cost the unbatched launch 10% of its device
-// time at 128^3 (0.1702 against 0.1550 ms; PERF.md). The bound is S times
-// A's (with momentum 64 bytes per voxel and scene: psi, vel, tnp, tg, live
-// in; psi', vel', tnp' out); one launch serves all S, so the host pays one
-// launch and one read of the S max norms per iteration instead of S.
+// reads and writes its slice of every volume (base offsets s*N and s*3N),
+// so scene s of a batch equals a one-scene launch on it bit for bit. One
+// scene runs the kScenes = false instantiation, the scene index a constant.
 #include "gd_step.cuh"
 
 namespace sobfu {
 
-// kScenes false: one scene, every offset 0 and no mask (gridDim.y == 1).
-template <bool kScenes>
-__device__ __forceinline__ int scene() {
-  return kScenes ? (int)blockIdx.y : 0;
+constexpr int kTileX = 32, kTileY = 8;  // kTileX * kTileY == kBlock: a voxel a thread per plane
+
+struct GdArgs {
+  float* psi[2];  // the ping-pong pair: iteration c reads [c & 1]
+  float* tnp[2];
+  float* vel[2];  // both null without momentum
+  const float* tg;
+  const float* live;
+  const float* taps;
+  const int* ctl_in;             // [S] row k
+  int* ctl_out;                  // [S] row k + 1
+  const unsigned int* prev_max;  // [S] launch k - 1's max bits; null for k = 0
+  unsigned int* max_bits;        // [S] this launch's
+  float alpha, w_reg, momentum, thresh, hi;
+  int Z, Y, X, K;
+  int LZ, tiles_x, tiles_y;
+  int copy_frozen;  // a frozen scene's blocks copy its state to the other buffer
+};
+
+// Whether scene s runs this launch and the iterations it has done; block 0
+// of the scene writes the next row.
+__device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) {
+  const int v = a.ctl_in[s];
+  const bool frozen = v < 0;
+  const int c = frozen ? -v - 1 : v;
+  bool on = !frozen;
+  if (on && a.prev_max != nullptr)
+    on = __fsqrt_rn(__uint_as_float(a.prev_max[s])) > a.thresh;
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl_out[s] = on ? c + 1 : -c - 1;
+  *count = c;
+  return on;
 }
 
-// active == nullptr: every scene runs.
-template <bool kScenes>
-__device__ __forceinline__ bool scene_on(const unsigned char* active, int s) {
-  return !kScenes || active == nullptr || active[s] != 0;
-}
+template <int NT, bool kScenes>
+__global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
+  constexpr int r = NT / 2;
+  constexpr int kSlots = NT + 1;
+  constexpr int HX = kTileX + 2 * r, HY = kTileY + 2 * r;
+  constexpr int kPlane = HY * HX;       // floats of one channel of one slot
+  constexpr int kChan = kSlots * kPlane;  // floats of one channel
+  constexpr int kRows = 2 * r * kTileX;   // halo positions above and below the tile
+  constexpr int kHalo = kRows + 2 * r * kTileY;  // ... and beside it
+  constexpr int NH = (kHalo + kBlock - 1) / kBlock;  // a thread's share of the halo
+  constexpr int kSide = r > 0 ? 2 * r : 1;
+  extern __shared__ float ring[];  // [3][kSlots][HY][HX]
 
-template <bool kScenes>
-__global__ void gd_potential_kernel(const float* __restrict__ psi,
-                                    const float* __restrict__ tnp,
-                                    const float* __restrict__ tg, float w_reg,
-                                    float* __restrict__ dU, unsigned int* max_bits,
-                                    const unsigned char* __restrict__ active, int Z, int Y,
-                                    int X) {
-  const long long N = (long long)Z * Y * X;
-  const int s = scene<kScenes>();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) max_bits[s] = 0u;  // read by gd_update, launched after this kernel
-  if (i >= N || !scene_on<kScenes>(active, s)) return;
-  gd_potential_voxel(i, psi + 3 * N * s, tnp + N * s, tg + N * s, w_reg, dU + 3 * N * s, Z,
-                     Y, X);
-}
+  const int s = kScenes ? (int)blockIdx.y : 0;
+  int count;
+  const bool on = gd_scene_on(a, s, &count);  // uniform over the block
+  if (!on && !a.copy_frozen) return;
 
-template <bool kScenes>
-__global__ void gd_update_kernel(
-    const float* __restrict__ psi, const float* __restrict__ vel,
-    const float* __restrict__ live, const float* __restrict__ dU,
-    const float* __restrict__ taps, int n_taps, float alpha, float momentum,
-    float* __restrict__ psi_out, float* __restrict__ tnp_out, float* __restrict__ vel_out,
-    const float* __restrict__ tnp, const float* __restrict__ tg, unsigned int* max_bits,
-    float* e_partials, const unsigned char* __restrict__ active, int Z, int Y, int X, int K,
-    float hi) {
-  const long long N = (long long)Z * Y * X;
-  const long long n_tiles = gridDim.x;
-  const int s = scene<kScenes>();
-  const long long f = 3 * N * s, v = N * s;  // the scene's field and volume offsets
-  if (!scene_on<kScenes>(active, s)) {  // uniform over the block: the whole block leaves here
-    const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-    if (i < N) {
-      for (int c = 0; c < 3; ++c) psi_out[f + c * N + i] = psi[f + c * N + i];
+  const int Z = a.Z, Y = a.Y, X = a.X;
+  const int XY = X * Y;
+  const unsigned N = (unsigned)Z * XY;
+  const ptrdiff_t sX = X, sXY = XY, sN = N;  // strides as pointer offsets
+  const size_t fo = (size_t)3 * N * s, vo = (size_t)N * s;  // field and volume offsets
+  const int par = count & 1;
+  const float* __restrict__ psi = a.psi[par] + fo;
+  const float* __restrict__ tnp = a.tnp[par] + vo;
+  const float* __restrict__ vel = a.vel[par] != nullptr ? a.vel[par] + fo : nullptr;
+  float* __restrict__ psi_out = a.psi[par ^ 1] + fo;
+  float* __restrict__ tnp_out = a.tnp[par ^ 1] + vo;
+  float* __restrict__ vel_out = vel != nullptr ? a.vel[par ^ 1] + fo : nullptr;
+  const float* __restrict__ tg = a.tg + vo;
+  const float* __restrict__ live = a.live + vo;
+
+  int b = blockIdx.x;
+  const int gx0 = (b % a.tiles_x) * kTileX;
+  b /= a.tiles_x;
+  const int gy0 = (b % a.tiles_y) * kTileY;
+  const int z0 = (b / a.tiles_y) * a.LZ;
+  const int z1 = min(z0 + a.LZ, Z);
+
+  // the thread's voxel of every plane, and whether the grid has it
+  const int tid = threadIdx.x;
+  const int ly = tid >> 5, lx = tid & 31;
+  const bool mine = gy0 + ly < Y && gx0 + lx < X;
+  const int vox = (gy0 + ly) * X + gx0 + lx;
+
+  if (!on) {  // the one-call form: the block's voxels pass through
+    for (int z = z0; z < z1 && mine; ++z) {
+      const float* p = psi + (z * XY + vox);
+      float* q = psi_out + (z * XY + vox);
+      for (int c = 0; c < 3; ++c) q[c * sN] = p[c * sN];
       if (vel != nullptr)
-        for (int c = 0; c < 3; ++c) vel_out[f + c * N + i] = vel[f + c * N + i];
-      tnp_out[v + i] = tnp[v + i];
+        for (int c = 0; c < 3; ++c) vel_out[c * sN + z * XY + vox] = vel[c * sN + z * XY + vox];
+      tnp_out[z * XY + vox] = tnp[z * XY + vox];
     }
-    if (e_partials != nullptr && threadIdx.x == 0) e_partials[n_tiles * s + blockIdx.x] = 0.0f;
     return;
   }
-  gd_update_tile(blockIdx.x, psi + f, vel != nullptr ? vel + f : nullptr, live + v, dU + f,
-                 taps, n_taps, alpha, momentum, psi_out + f, tnp_out + v,
-                 vel_out != nullptr ? vel_out + f : nullptr, tg + v, max_bits + s,
-                 e_partials != nullptr ? e_partials + n_tiles * s : nullptr, Z, Y, X, K, hi);
+
+  // The positions of a plane whose dU this thread computes: [0] its own
+  // voxel, [1..NH] its share of the cross-shaped halo (filled on the
+  // segment's own planes only). Each is clamped into the grid once, here:
+  // off is y * X + x of the clamped voxel, dst its place in a slot.
+  int off[1 + NH], dst[1 + NH];
+  bool has[1 + NH], in_x[1 + NH], in_y[1 + NH];
+#pragma unroll
+  for (int k = 0; k <= NH; ++k) {
+    int py = ly + r, px = lx + r;
+    has[k] = true;
+    if (k > 0) {
+      const int h = tid + (k - 1) * kBlock;
+      has[k] = h < kHalo;
+      if (h < kRows) {  // rows 0 .. r-1 and kTileY+r .. kTileY+2r-1, the tile's columns
+        const int j = h >> 5;
+        py = j < r ? j : kTileY + j;
+        px = r + (h & 31);
+      } else {  // 2r columns beside each of the tile's rows
+        const int e = h - kRows, col = e % kSide;
+        py = r + e / kSide;
+        px = col < r ? col : kTileX + col;
+      }
+    }
+    const int yc = min(max(gy0 + py - r, 0), Y - 1);
+    const int xc = min(max(gx0 + px - r, 0), X - 1);
+    off[k] = yc * X + xc;
+    dst[k] = py * HX + px;
+    in_x[k] = xc > 0 && xc < X - 1;
+    in_y[k] = yc > 0 && yc < Y - 1;
+  }
+
+  float w[NT];
+#pragma unroll
+  for (int u = 0; u < NT; ++u) w[u] = __ldg(a.taps + u);
+
+  float n2_max = 0.0f;
+  for (int p = z0 - r; p <= z1 + r; ++p) {
+    // the voxel finished this step: its planes zo - r .. zo + r were filled before
+    const int zo = p - r - 1;
+    const bool finish = zo >= z0 && mine;
+    const int i = zo * XY + vox;
+    // its psi and velocity are asked for before the fill, whose loads hide theirs
+    float psi_c[3], vel_c[3] = {0.0f, 0.0f, 0.0f};
+    if (finish) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        psi_c[c] = __ldg(psi + (c * sN + i));
+        if (vel != nullptr) vel_c[c] = __ldg(vel + (c * sN + i));
+      }
+    }
+    if (p < z1 + r) {
+      // dU of plane p (clamped into the grid) into its slot
+      float* slot = ring + ((p - (z0 - r)) % kSlots) * kPlane;
+      const bool cross = p >= z0 && p < z1;  // an output plane: the x and y halos too
+      const int zc = min(max(p, 0), Z - 1);
+      const bool in_z = zc > 0 && zc < Z - 1;
+#pragma unroll
+      for (int k = 0; k <= NH; ++k) {
+        if (k > 0 && !(cross && has[k])) continue;
+        const int i = zc * XY + off[k];
+        const float* pt = tnp + i;
+        const float* pp = psi + i;
+        float d[3];
+        gd_potential(
+            in_x[k], in_y[k], in_z, __ldg(tg + i), a.w_reg,
+            [&](int dx, int dy, int dz) { return __ldg(pt + (dx + dy * sX + dz * sXY)); },
+            [&](int c, int dx, int dy, int dz) {
+              return __ldg(pp + (c * sN + dx + dy * sX + dz * sXY));
+            },
+            d);
+        float* q = slot + dst[k];
+        q[0] = d[0];
+        q[kChan] = d[1];
+        q[2 * kChan] = d[2];
+      }
+    }
+    if (finish) {
+      const int sb = (zo - z0 + 2 * r) % kSlots;  // slot of plane zo + r; plane zo + r - u: sb - u
+      const float* f0 = ring + ((zo - z0 + r) % kSlots) * kPlane + dst[0];  // plane zo, channel 0
+      const float* fz = ring + dst[0];                                       // slot 0, channel 0
+      float p_new[3], upd[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float dus = sobolev_sum(
+            NT, [&](int u) { return w[u]; }, [&](int u) { return f0[c * kChan + (r - u)]; },
+            [&](int u) { return f0[c * kChan + (r - u) * HX]; },
+            [&](int u) {
+              const int su = sb - u;
+              return fz[c * kChan + (su < 0 ? su + kSlots : su) * kPlane];
+            });
+        const ptrdiff_t ci = c * sN + i;
+        float step;
+        upd[c] = gd_step_channel(dus, vel != nullptr, vel_c[c], psi_c[c], a.alpha, a.momentum,
+                                 &step, &p_new[c]);
+        if (vel != nullptr) vel_out[ci] = step;
+        psi_out[ci] = p_new[c];
+      }
+      n2_max = nan_max(norm_sq(upd), n2_max);
+      const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], gx0 + lx, gy0 + ly, zo, Z, Y, X, a.K,
+                            a.hi);
+      tnp_out[i] = trilinear(t, a.K < 0, [&](int xi, int yi, int zi) {
+        return __ldg(live + (zi * XY + yi * X + xi));
+      });
+    }
+    __syncthreads();
+  }
+  block_max_atomic(n2_max, a.max_bits + s);
+}
+
+// The tile partials of 0.5 * sum (tg - tnp')^2 after the call's last launch:
+// sum over tile blockIdx.x of 256 consecutive voxels in block_sum's order —
+// the partial kernel E's update body writes for the same tile. ctl is row n:
+// a scene that ran the last launch has c >= 0 and its tnp' in buffer c & 1;
+// a frozen scene's partials are 0.
+template <bool kScenes>
+__global__ void __launch_bounds__(kBlock)
+    energy_partials_kernel(const float* tnp0, const float* tnp1, const float* __restrict__ tg,
+                           const int* __restrict__ ctl, float* __restrict__ e_partials,
+                           unsigned N) {
+  const int s = kScenes ? (int)blockIdx.y : 0;
+  const int c = ctl[s];
+  const unsigned i = blockIdx.x * kBlock + threadIdx.x;
+  float e2 = 0.0f;
+  if (c >= 0 && i < N) {
+    const float* tnp = ((c & 1) != 0 ? tnp1 : tnp0) + (size_t)N * s;
+    const float d = tg[(size_t)N * s + i] - tnp[i];
+    e2 = d * d;
+  }
+  const float sum = block_sum(e2);
+  if (threadIdx.x == 0) e_partials[(size_t)gridDim.x * s + blockIdx.x] = sum;
 }
 
 // 0.5 * the sum of n tile partials, by one block in a fixed order; block b
@@ -121,52 +337,105 @@ __global__ void energy_final_kernel(const float* __restrict__ partials, long lon
   if (threadIdx.x == 0) out[blockIdx.x] = 0.5f * s;
 }
 
-template <bool kScenes>
-int gd_iteration_launch(const float* psi, const float* tnp, const float* vel, const float* tg,
-                        const float* live, const float* taps, int n_taps, float alpha,
-                        float w_reg, float momentum, const unsigned char* active, float* dU,
-                        float* psi_out, float* tnp_out, float* vel_out, float* max_sq,
-                        float* e_partials, float* e_data, int S, int Z, int Y, int X, int K,
-                        cudaStream_t stream) {
-  const long long N = (long long)Z * Y * X;
-  const float hi = (float)((double)K - 1e-4);
-  unsigned int* max_bits = reinterpret_cast<unsigned int*>(max_sq);
-  const int n_blocks = blocks_for(N);
-  const dim3 grid(n_blocks, S);
-  gd_potential_kernel<kScenes>
-      <<<grid, kBlock, 0, stream>>>(psi, tnp, tg, w_reg, dU, max_bits, active, Z, Y, X);
-  cudaError_t err = cudaGetLastError();
+struct GdCall {
+  GdArgs a;
+  int* ctl;
+  float* max_sq;
+  float* e_partials;
+  float* e_data;
+  int n, S;
+  cudaStream_t stream;
+};
+
+template <int NT, bool kScenes>
+int gd_iterations_launch(GdCall c) {
+  GdArgs& a = c.a;
+  constexpr int r = NT / 2;
+  const size_t smem = sizeof(float) * 3 * (NT + 1) * (kTileY + 2 * r) * (kTileX + 2 * r);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gd_update_kernel<kScenes><<<grid, kBlock, 0, stream>>>(
-      psi, vel, live, dU, taps, n_taps, alpha, momentum, psi_out, tnp_out, vel_out, tnp, tg,
-      max_bits, e_partials, active, Z, Y, X, K, hi);
+  err = cudaMemsetAsync(c.max_sq, 0, sizeof(float) * c.n * c.S, c.stream);
+  if (err != cudaSuccess) return (int)err;
+  const int segs = (a.Z + a.LZ - 1) / a.LZ;
+  const dim3 grid(a.tiles_x * a.tiles_y * segs, c.S);
+  unsigned int* rows = reinterpret_cast<unsigned int*>(c.max_sq);
+  for (int k = 0; k < c.n; ++k) {
+    a.ctl_in = c.ctl + (size_t)k * c.S;
+    a.ctl_out = c.ctl + (size_t)(k + 1) * c.S;
+    a.prev_max = k > 0 ? rows + (size_t)(k - 1) * c.S : nullptr;
+    a.max_bits = rows + (size_t)k * c.S;
+    gd_fused_kernel<NT, kScenes><<<grid, kBlock, smem, c.stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (c.e_partials == nullptr) return 0;
+  const unsigned N = (unsigned)a.Z * a.Y * a.X;
+  const int n_tiles = blocks_for(N);
+  energy_partials_kernel<kScenes><<<dim3(n_tiles, c.S), kBlock, 0, c.stream>>>(
+      a.tnp[0], a.tnp[1], a.tg, c.ctl + (size_t)c.n * c.S, c.e_partials, N);
   err = cudaGetLastError();
-  if (err != cudaSuccess || e_partials == nullptr) return (int)err;
-  energy_final_kernel<<<S, kBlock, 0, stream>>>(e_partials, n_blocks, e_data);
+  if (err != cudaSuccess) return (int)err;
+  energy_final_kernel<<<c.S, kBlock, 0, c.stream>>>(c.e_partials, n_tiles, c.e_data);
   return (int)cudaGetLastError();
+}
+
+template <int NT>
+int gd_iterations_scenes(const GdCall& c) {
+  return c.S == 1 ? gd_iterations_launch<NT, false>(c) : gd_iterations_launch<NT, true>(c);
 }
 
 }  // namespace sobfu
 
-// psi, vel, dU, psi_out, vel_out f32[S,3,Z,Y,X]; tnp, tg, live, tnp_out
-// f32[S,Z,Y,X]; vel and vel_out both null without momentum; taps
-// f32[n_taps]; active u8[S] (0 = the scene keeps its state) or null (every
-// scene runs); max_sq f32[S], each scene's max squared update norm;
-// e_partials f32[S, ceil(Z*Y*X / 256)] and e_data f32[S] or both null (no
-// energy); K < 0 = exact warp. 1 <= S <= 65535.
-extern "C" int sobfu_gd_iteration(
-    const float* psi, const float* tnp, const float* vel, const float* tg, const float* live,
-    const float* taps, int n_taps, float alpha, float w_reg, float momentum,
-    const unsigned char* active, float* dU, float* psi_out, float* tnp_out, float* vel_out,
-    float* max_sq, float* e_partials, float* e_data, int S, int Z, int Y, int X, int K,
-    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S == 1 && active == nullptr)
-    return sobfu::gd_iteration_launch<false>(psi, tnp, vel, tg, live, taps, n_taps, alpha,
-                                             w_reg, momentum, active, dU, psi_out, tnp_out,
-                                             vel_out, max_sq, e_partials, e_data, S, Z, Y, X,
-                                             K, st);
-  return sobfu::gd_iteration_launch<true>(psi, tnp, vel, tg, live, taps, n_taps, alpha, w_reg,
-                                          momentum, active, dU, psi_out, tnp_out, vel_out,
-                                          max_sq, e_partials, e_data, S, Z, Y, X, K, st);
+// n iterations of kernel A on S scenes, the stop test on the card.
+// psi0/psi1, vel0/vel1 f32[S,3,Z,Y,X] and tnp0/tnp1 f32[S,Z,Y,X] are the
+// ping-pong pair (vel0 and vel1 both null without momentum); tg, live
+// f32[S,Z,Y,X]; taps f32[n_taps], n_taps odd <= 11. ctl i32[n+1,S]: the
+// caller sets row 0 (per scene c >= 0: c iterations done, its state in
+// buffer c & 1, running; -(c + 1): frozen), rows 1..n are written here.
+// max_sq f32[n,S]: the max squared update norm of each launch, 0 where the
+// scene did not run. e_partials f32[S, ceil(Z*Y*X / 256)] and e_data f32[S],
+// or both null: the data energy after launch n - 1 of the scenes that ran
+// it, 0 for the others. LZ is the z segment of a block, whose (y, x) tile is
+// 8 x 32 (kernels.gd_tile_plan). copy_frozen != 0 (with n = 1): a frozen
+// scene's state is copied to the other buffer, so that buffer holds every
+// scene's state after the call. K < 0 = exact warp. 1 <= S <= 65535,
+// Z*Y*X < 2^31.
+extern "C" int sobfu_gd_iterations(float* psi0, float* psi1, float* tnp0, float* tnp1,
+                                   float* vel0, float* vel1, const float* tg,
+                                   const float* live, const float* taps, int n_taps,
+                                   float alpha, float w_reg, float momentum, float thresh,
+                                   int* ctl, float* max_sq, float* e_partials, float* e_data,
+                                   int n, int S, int Z, int Y, int X, int K, int LZ,
+                                   int copy_frozen, void* stream) {
+  using namespace sobfu;
+  const long long N = (long long)Z * Y * X;
+  if (n < 1 || S < 1 || S > 65535 || N < 1 || N >= (1ll << 31) || LZ < 1)
+    return (int)cudaErrorInvalidValue;
+  GdCall c;
+  GdArgs& a = c.a;
+  a.psi[0] = psi0, a.psi[1] = psi1;
+  a.tnp[0] = tnp0, a.tnp[1] = tnp1;
+  a.vel[0] = vel0, a.vel[1] = vel1;
+  a.tg = tg, a.live = live, a.taps = taps;
+  a.alpha = alpha, a.w_reg = w_reg, a.momentum = momentum, a.thresh = thresh;
+  a.hi = (float)((double)K - 1e-4);
+  a.Z = Z, a.Y = Y, a.X = X, a.K = K;
+  a.LZ = LZ;
+  a.copy_frozen = copy_frozen;
+  a.tiles_x = (X + kTileX - 1) / kTileX;
+  a.tiles_y = (Y + kTileY - 1) / kTileY;
+  c.ctl = ctl, c.max_sq = max_sq, c.e_partials = e_partials, c.e_data = e_data;
+  c.n = n, c.S = S;
+  c.stream = (cudaStream_t)stream;
+  switch (n_taps) {
+    case 1: return gd_iterations_scenes<1>(c);
+    case 3: return gd_iterations_scenes<3>(c);
+    case 5: return gd_iterations_scenes<5>(c);
+    case 7: return gd_iterations_scenes<7>(c);
+    case 9: return gd_iterations_scenes<9>(c);
+    case 11: return gd_iterations_scenes<11>(c);
+  }
+  return (int)cudaErrorInvalidValue;
 }

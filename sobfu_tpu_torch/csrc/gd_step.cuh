@@ -1,27 +1,92 @@
-// The two bodies of one Sobolev gradient-descent iteration, shared by kernel
-// A (csrc/gd_iteration.cu, one launch per body) and kernel E
-// (csrc/gd_multi.cu, n iterations in one cooperative launch), so that both
-// run the same instructions and E equals chained A launches bit for bit.
+// The arithmetic of one Sobolev gradient-descent iteration, written once over
+// value getters, and the two global-memory bodies built from it.
 //
-// Work is cut into tiles of kBlock consecutive voxels, thread t of a block
-// taking voxel tile * kBlock + t. A runs one tile per block; E walks the
-// tiles with a grid-stride loop. Every per-iteration reduction is formed per
-// tile in a fixed order (sampling.cuh block_sum / block_max_atomic) and the
-// tile partials are summed by one block in a fixed order (sum_partials), so
-// the result does not depend on how tiles map to blocks.
+// The arithmetic (gd_potential, sobolev_sum, gd_step_channel, norm_sq) takes
+// its operands through getters, so the same instructions in the same order
+// serve every kernel whatever memory the operands come from:
+//   - kernel A (csrc/gd_iteration.cu) computes dU into shared memory and
+//     convolves it from there, one launch per iteration;
+//   - kernel E (csrc/gd_multi.cu, n iterations in one cooperative launch)
+//     runs the two global-memory bodies below (gd_potential_voxel writes dU
+//     to a scratch field, gd_update_tile gathers it back) between grid syncs.
+// Built with --fmad=false, both therefore land on the same bits: E equals
+// chained A launches bit for bit.
+//
+// The bodies cut the work into tiles of kBlock consecutive voxels, thread t
+// of a block taking voxel tile * kBlock + t; E walks the tiles with a
+// grid-stride loop. Every per-iteration reduction is formed per tile in a
+// fixed order (sampling.cuh block_sum / block_max_atomic) and the tile
+// partials are summed by one block in a fixed order (sum_partials), so the
+// result does not depend on how tiles map to blocks. A's energy pass
+// (gd_iteration.cu energy_partials_kernel) forms the same tile partials.
 //
 // Kernel E writes psi, tnp, vel and dU between grid syncs, so only the
 // loop-invariant live volume and taps are read through the read-only path
-// (__ldg); everything else is a plain load.
+// (__ldg) there; everything else is a plain load.
 #pragma once
 
 #include "sampling.cuh"
 
 namespace sobfu {
 
-// dU = (tnp - tg) * grad(tnp) + w_reg * (-lap psi) at voxel i < N.
-//   grad: central difference, 0 on each axis's boundary slices
+// dU[c] = (tnp - tg) * grad(tnp)[c] + w_reg * (-lap psi[c]) at one voxel.
+//   grad: central difference, 0 on each axis's boundary slices (in_x false)
 //   lap:  per-axis second difference, 0 on that axis's boundary slices
+// tnp(dx, dy, dz) and psi(c, dx, dy, dz) return the value at the voxel's
+// neighbour; they are called only where the neighbour is inside the grid.
+template <typename TnpAt, typename PsiAt>
+__device__ __forceinline__ void gd_potential(bool in_x, bool in_y, bool in_z, float tg_c,
+                                             float w_reg, TnpAt tnp, PsiAt psi, float* dU) {
+  const float gx = in_x ? (tnp(1, 0, 0) - tnp(-1, 0, 0)) * 0.5f : 0.0f;
+  const float gy = in_y ? (tnp(0, 1, 0) - tnp(0, -1, 0)) * 0.5f : 0.0f;
+  const float gz = in_z ? (tnp(0, 0, 1) - tnp(0, 0, -1)) * 0.5f : 0.0f;
+  const float diff = tnp(0, 0, 0) - tg_c;
+  const float grad[3] = {gx, gy, gz};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float pc = psi(c, 0, 0, 0);
+    const float sdx = in_x ? (psi(c, 1, 0, 0) + psi(c, -1, 0, 0)) - 2.0f * pc : 0.0f;
+    const float sdy = in_y ? (psi(c, 0, 1, 0) + psi(c, 0, -1, 0)) - 2.0f * pc : 0.0f;
+    const float sdz = in_z ? (psi(c, 0, 0, 1) + psi(c, 0, 0, -1)) - 2.0f * pc : 0.0f;
+    const float lap = -((sdx + sdy) + sdz);
+    dU[c] = diff * grad[c] + w_reg * lap;
+  }
+}
+
+// conv_x + conv_y + conv_z of one channel at one voxel: fx(u), fy(u), fz(u)
+// return dU at the voxel's coordinate + r - u along their axis (replicate
+// edge), w(u) tap u. Taps accumulate u = 0 .. n_taps - 1 into three sums,
+// added as (cx + cy) + cz.
+template <typename W, typename FX, typename FY, typename FZ>
+__device__ __forceinline__ float sobolev_sum(int n_taps, W w, FX fx, FY fy, FZ fz) {
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+#pragma unroll
+  for (int u = 0; u < n_taps; ++u) {
+    const float wu = w(u);
+    cx = cx + wu * fx(u);
+    cy = cy + wu * fy(u);
+    cz = cz + wu * fz(u);
+  }
+  return (cx + cy) + cz;
+}
+
+// One channel's step from its smoothed gradient dus: *step = mu * vel + dus
+// with momentum (the new velocity), dus without; *p_new = psi - alpha *
+// step. Returns the update alpha * step.
+__device__ __forceinline__ float gd_step_channel(float dus, bool has_vel, float vel_c,
+                                                 float psi_c, float alpha, float momentum,
+                                                 float* step, float* p_new) {
+  *step = has_vel ? momentum * vel_c + dus : dus;
+  const float upd = alpha * *step;
+  *p_new = psi_c - upd;
+  return upd;
+}
+
+__device__ __forceinline__ float norm_sq(const float* upd) {
+  return (upd[0] * upd[0] + upd[1] * upd[1]) + upd[2] * upd[2];
+}
+
+// gd_potential at voxel i < N from global memory, written to dU.
 __device__ __forceinline__ void gd_potential_voxel(long long i, const float* psi,
                                                    const float* tnp, const float* tg,
                                                    float w_reg, float* dU, int Z, int Y,
@@ -31,24 +96,13 @@ __device__ __forceinline__ void gd_potential_voxel(long long i, const float* psi
   const int y = (int)((i / X) % Y);
   const int z = (int)(i / ((long long)X * Y));
   const long long sy = X, sz = (long long)X * Y;
-  const bool in_x = x > 0 && x < X - 1;
-  const bool in_y = y > 0 && y < Y - 1;
-  const bool in_z = z > 0 && z < Z - 1;
-
-  const float gx = in_x ? (tnp[i + 1] - tnp[i - 1]) * 0.5f : 0.0f;
-  const float gy = in_y ? (tnp[i + sy] - tnp[i - sy]) * 0.5f : 0.0f;
-  const float gz = in_z ? (tnp[i + sz] - tnp[i - sz]) * 0.5f : 0.0f;
-  const float diff = tnp[i] - tg[i];
-  const float grad[3] = {gx, gy, gz};
-  for (int c = 0; c < 3; ++c) {
-    const float* p = psi + c * N;
-    const float pc = p[i];
-    const float sdx = in_x ? (p[i + 1] + p[i - 1]) - 2.0f * pc : 0.0f;
-    const float sdy = in_y ? (p[i + sy] + p[i - sy]) - 2.0f * pc : 0.0f;
-    const float sdz = in_z ? (p[i + sz] + p[i - sz]) - 2.0f * pc : 0.0f;
-    const float lap = -((sdx + sdy) + sdz);
-    dU[c * N + i] = diff * grad[c] + w_reg * lap;
-  }
+  float d[3];
+  gd_potential(
+      x > 0 && x < X - 1, y > 0 && y < Y - 1, z > 0 && z < Z - 1, tg[i], w_reg,
+      [&](int dx, int dy, int dz) { return tnp[i + dx + dy * sy + dz * sz]; },
+      [&](int c, int dx, int dy, int dz) { return psi[c * N + i + dx + dy * sy + dz * sz]; },
+      d);
+  for (int c = 0; c < 3; ++c) dU[c * N + i] = d[c];
 }
 
 // The summands of the verbose energies at voxel i < N, before the update:
@@ -102,27 +156,18 @@ __device__ __forceinline__ void gd_update_tile(
     float p_new[3], upd[3];
     for (int c = 0; c < 3; ++c) {
       const float* f = dU + c * N;
-      float cx = 0.0f, cy = 0.0f, cz = 0.0f;
-      for (int u = 0; u < n_taps; ++u) {
-        const float w = __ldg(taps + u);
-        const int xs = min(max(x + r - u, 0), X - 1);
-        const int ys = min(max(y + r - u, 0), Y - 1);
-        const int zs = min(max(z + r - u, 0), Z - 1);
-        cx = cx + w * f[row + xs];
-        cy = cy + w * f[col + (long long)ys * X];
-        cz = cz + w * f[pil + (long long)zs * Y * X];
-      }
-      const float dus = (cx + cy) + cz;
-      float step = dus;
-      if (vel != nullptr) {
-        step = momentum * vel[c * N + i] + dus;
-        vel_out[c * N + i] = step;
-      }
-      upd[c] = alpha * step;
-      p_new[c] = psi[c * N + i] - upd[c];
+      const float dus = sobolev_sum(
+          n_taps, [&](int u) { return __ldg(taps + u); },
+          [&](int u) { return f[row + min(max(x + r - u, 0), X - 1)]; },
+          [&](int u) { return f[col + (long long)min(max(y + r - u, 0), Y - 1) * X]; },
+          [&](int u) { return f[pil + (long long)min(max(z + r - u, 0), Z - 1) * Y * X]; });
+      float step;
+      upd[c] = gd_step_channel(dus, vel != nullptr, vel != nullptr ? vel[c * N + i] : 0.0f,
+                               psi[c * N + i], alpha, momentum, &step, &p_new[c]);
+      if (vel != nullptr) vel_out[c * N + i] = step;
       psi_out[c * N + i] = p_new[c];
     }
-    n2 = (upd[0] * upd[0] + upd[1] * upd[1]) + upd[2] * upd[2];
+    n2 = norm_sq(upd);
     const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], x, y, z, Z, Y, X, K, hi);
     const float t_new = trilinear(t, K < 0, [&](int xi, int yi, int zi) {
       return __ldg(live + flat_index(xi, yi, zi, Y, X));

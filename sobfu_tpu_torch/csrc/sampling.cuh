@@ -42,10 +42,12 @@ struct AxisTaps {
   float w0, w1;
 };
 
-__device__ __forceinline__ AxisTaps axis_taps(float c, int v, int n, int K, float hi) {
+// kExact is K < 0 as a compile-time constant (K and hi are then unused).
+template <bool kExact>
+__device__ __forceinline__ AxisTaps axis_taps_t(float c, int v, int n, int K, float hi) {
   AxisTaps t;
   c = clampf(c, 0.0f, (float)(n - 1));
-  if (K < 0) {
+  if (kExact) {
     const float f0 = floorf(c);
     t.i0 = (int)f0;
     t.i1 = min(t.i0 + 1, n - 1);
@@ -63,9 +65,23 @@ __device__ __forceinline__ AxisTaps axis_taps(float c, int v, int n, int K, floa
   return t;
 }
 
+__device__ __forceinline__ AxisTaps axis_taps(float c, int v, int n, int K, float hi) {
+  return K < 0 ? axis_taps_t<true>(c, v, n, K, hi) : axis_taps_t<false>(c, v, n, K, hi);
+}
+
 struct Taps3 {
   AxisTaps x, y, z;
 };
+
+template <bool kExact>
+__device__ __forceinline__ Taps3 taps3_t(float px, float py, float pz, int vx, int vy, int vz,
+                                         int Z, int Y, int X, int K, float hi) {
+  Taps3 t;
+  t.x = axis_taps_t<kExact>(px, vx, X, K, hi);
+  t.y = axis_taps_t<kExact>(py, vy, Y, K, hi);
+  t.z = axis_taps_t<kExact>(pz, vz, Z, K, hi);
+  return t;
+}
 
 __device__ __forceinline__ Taps3 taps3(float px, float py, float pz, int vx, int vy,
                                        int vz, int Z, int Y, int X, int K, float hi) {

@@ -41,9 +41,9 @@ SIGNATURES = {
     "sobfu_warp": (_P, _I, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _P),
     "sobfu_inverse_fixed_point": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sobfu_warp_fuse": (_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P),
-    "sobfu_gd_iteration": (
-        _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _P,
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    "sobfu_gd_iterations": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "sobfu_gd_multi": (
         _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,

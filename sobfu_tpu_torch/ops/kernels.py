@@ -24,6 +24,11 @@ CPU tensors go to the plain torch version (``*_plain``, built from
 :mod:`sobfu_tpu_torch.fields`); CUDA tensors launch the kernel on the
 current stream or raise — there is no fallback. ``launch_counts`` counts
 kernel launches per wrapper and is touched nowhere else.
+
+The solve loops run kernel A through :class:`GdLoop`: up to ``GD_CHUNK``
+iterations per call, each a launch that tests the stop rule on the device,
+with one host read per call; its launches are counted as the iterations
+that ran (the device's counter), under the same two names.
 """
 
 from __future__ import annotations
@@ -74,9 +79,17 @@ KERNELS = {
 TILE = 256
 
 
+# the solve loops: host reads of the device's stop state (one per chunk of
+# kernel A's GdLoop; the norm, and the energy at a stall check, per launch of
+# kernel E), and A's launches enqueued after every scene had stopped
+host_reads = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0}
+empty_launches = {"gd_iteration": 0, "gd_iteration_scenes": 0}
+
+
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, host_reads, empty_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +167,8 @@ def _launch_warp(kernel: str, vol, psi, K: Optional[int], floor: Sequence[bool])
     if C > 32:
         raise ValueError("warp takes at most 32 channels")
     Z, Y, X = vol.shape[1:]
+    if Z * Y * X >= 2 ** 31:
+        raise ValueError(f"warp takes grids under 2^31 voxels, got {Z * Y * X}")
     dev = vol.device
     out = torch.empty_like(vol)
     mask = sum(1 << c for c in range(C) if floor[c])
@@ -331,58 +346,130 @@ def gd_iteration_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
     return psi_new, tnp_new, vel_new, max_sq
 
 
+# A block of kernel A owns TILE_X columns by 8 rows (csrc/gd_iteration.cu
+# kTileX, kTileY) and marches LZ planes; the card's shared memory per block
+TILE_X = 32
+SHARED_LIMIT = 232448
+# iterations enqueued per host read of the chunked loops (a chunk also ends
+# at each stall check and at max_iter)
+GD_CHUNK = 16
+
+
+def gd_tile_plan(dims, n_taps: int, n_sm: int = 132) -> dict:
+    """Kernel A's tile plan for a grid (Z, Y, X): a block's (y, x) tile is
+    TY x 32 = 8 x 32 voxels (csrc/gd_iteration.cu kTileY, kTileX: a voxel a
+    thread per plane) and it marches a z segment of LZ planes, with a ring
+    of n_taps + 1 dU planes (3 channels, the tile plus a halo of r = n_taps
+    // 2 on its four sides) in shared memory. LZ, the one free choice, is
+    the longest segment that still gives every SM four blocks, at least 4
+    planes (a segment computes LZ + 2r planes of dU); the launch takes it.
+    Returns TY, LZ, halo, the tile counts, blocks and shared_bytes."""
+    Z, Y, X = (int(d) for d in dims)
+    r = int(n_taps) // 2
+    TY = 8
+    tiles_y, tiles_x = -(-Y // TY), -(-X // TILE_X)
+    want = max(1, 4 * n_sm // (tiles_y * tiles_x))  # segments for 4 blocks an SM
+    LZ = max(min(4, Z), -(-Z // want))
+    segs = -(-Z // LZ)
+    shared = 4 * 3 * (n_taps + 1) * (TY + 2 * r) * (TILE_X + 2 * r)
+    if shared > SHARED_LIMIT:
+        raise ValueError(f"kernel A's dU ring needs {shared} bytes of shared memory")
+    return dict(TY=TY, LZ=LZ, halo=r, tiles_y=tiles_y, tiles_x=tiles_x, segs=segs,
+                blocks=tiles_y * tiles_x * segs, shared_bytes=shared)
+
+
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launch_gd_chunk(bufs, tg, live, taps, alpha, w_reg, momentum, K, thresh, ctl, max_sq,
+                     parts, e, n: int, plan: dict, copy_frozen: bool = False) -> None:
+    """Enqueue n launches of kernel A (sobfu_gd_iterations) on the ping-pong
+    buffers bufs = ((psi, tnp, vel), (psi, tnp, vel)) of S scenes; nothing
+    is counted here. copy_frozen (n = 1): a frozen scene's state is copied
+    to the other buffer."""
+    from sobfu_tpu_torch.ops._build import library
+
+    (psi0, tnp0, vel0), (psi1, tnp1, vel1) = bufs
+    S, _, Z, Y, X = psi0.shape
+    dev = psi0.device
+    if not 1 <= S <= 65535:
+        raise ValueError(f"kernel A takes 1..65535 scenes, got {S}")
+    if Z * Y * X >= 2 ** 31:
+        raise ValueError(f"kernel A takes grids under 2^31 voxels, got {Z * Y * X}")
+    vols, flds = (S, Z, Y, X), (S, 3, Z, Y, X)
+    s = _check_taps(taps, dev)
+    has_vel = momentum is not None
+    if tuple(ctl.shape) != (n + 1, S) or ctl.dtype != torch.int32 or not ctl.is_contiguous():
+        raise ValueError(f"ctl: {ctl.dtype}{tuple(ctl.shape)}, expected int32 ({n + 1}, {S})")
+    with torch.cuda.device(dev):
+        rc = library().sobfu_gd_iterations(
+            _check("psi", psi0, flds, dev), _check("psi", psi1, flds, dev),
+            _check("tnp", tnp0, vols, dev), _check("tnp", tnp1, vols, dev),
+            _check("vel", vel0, flds, dev) if has_vel else None,
+            _check("vel", vel1, flds, dev) if has_vel else None,
+            _check("tg", tg, vols, dev), _check("live", live, vols, dev),
+            taps.data_ptr(), s,
+            float(alpha), float(w_reg), float(momentum) if has_vel else 0.0, float(thresh),
+            ctl.data_ptr(), _check("max_sq", max_sq, (n, S), dev),
+            None if e is None else _check("e_partials", parts, (S, _n_tiles((Z, Y, X))), dev),
+            None if e is None else _check("e_data", e, (S,), dev),
+            n, S, Z, Y, X, _K(K), plan["LZ"], int(copy_frozen),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gd_iteration: CUDA launch failed with error {rc}")
+
+
 def _launch_gd(kernel: str, lead: tuple, psi, tnp, vel, tg, live, taps, alpha, w_reg,
                momentum, K, active, with_energy: bool):
-    """A's launch, counted under ``kernel``: lead () for one scene (psi
-    f32[3,Z,Y,X]; the norm and energy 0-dim), (S,) for S scenes (psi
-    f32[S,3,Z,Y,X]; the norms and energies f32[S]). active None = every
-    scene runs."""
+    """One iteration of A as a call of its own, counted under ``kernel``:
+    lead () for one scene (psi f32[3,Z,Y,X]; the norm and energy 0-dim),
+    (S,) for S scenes (psi f32[S,3,Z,Y,X]; the norms and energies f32[S]).
+    active None = every scene runs; an inactive scene's state is passed
+    through."""
     S = lead[0] if lead else 1
     Z, Y, X = psi.shape[-3:]
-    vols = lead + (Z, Y, X)
-    flds = lead + (3, Z, Y, X)
     dev = psi.device
-    if not 1 <= S <= 65535:
-        raise ValueError(f"{kernel} takes 1..65535 scenes, got {S}")
     if active is not None:
         if active.device != dev or active.dtype not in (torch.bool, torch.uint8):
             raise TypeError(f"active: {active.dtype} on {active.device}, expected bool on {dev}")
         if tuple(active.shape) != (S,) or not active.is_contiguous():
             raise ValueError(f"active: shape {tuple(active.shape)}, expected ({S},) contiguous")
-    s = _check_taps(taps, dev)
+    if psi.dim() != len(lead) + 4:
+        raise ValueError(f"psi: shape {tuple(psi.shape)}, expected {lead + (3, Z, Y, X)}")
+    has_vel = momentum is not None
+
+    def scenes(t):  # a scene axis on the unbatched operands (a view)
+        return t if lead else t[None]
+
     f32 = dict(dtype=torch.float32, device=dev)
-    dU = torch.empty_like(psi)
-    psi_out = torch.empty_like(psi)
-    tnp_out = torch.empty_like(tnp)
-    vel_out = torch.empty_like(psi) if momentum is not None else None
-    max_sq = torch.empty(lead, **f32)
-    parts = torch.empty(lead + (_n_tiles((Z, Y, X)),), **f32) if with_energy else None
-    e = torch.empty(lead, **f32) if with_energy else None
-    _launch(
-        kernel, "sobfu_gd_iteration", dev,
-        _check("psi", psi, flds, dev),
-        _check("tnp", tnp, vols, dev),
-        None if momentum is None else _check("vel", vel, flds, dev),
-        _check("tg", tg, vols, dev),
-        _check("live", live, vols, dev),
-        taps.data_ptr(), s,
-        float(alpha), float(w_reg), 0.0 if momentum is None else float(momentum),
-        _ptr(active),
-        dU.data_ptr(), psi_out.data_ptr(), tnp_out.data_ptr(), _ptr(vel_out),
-        max_sq.data_ptr(), _ptr(parts), _ptr(e), S, Z, Y, X, _K(K),
-    )
-    if with_energy:
-        return psi_out, tnp_out, vel_out, max_sq, e
-    return psi_out, tnp_out, vel_out, max_sq
+    psi_out, tnp_out = torch.empty_like(psi), torch.empty_like(tnp)
+    vel_out = torch.empty_like(psi) if has_vel else None
+    ctl = torch.zeros((2, S), dtype=torch.int32, device=dev)
+    if active is not None:
+        ctl[0] = active.to(torch.int32) - 1       # 0: runs; -1: frozen at 0 iterations
+    max_sq = torch.empty((1, S), **f32)
+    parts = torch.empty((S, _n_tiles((Z, Y, X))), **f32) if with_energy else None
+    e = torch.empty((S,), **f32) if with_energy else None
+    bufs = ((scenes(psi), scenes(tnp), scenes(vel) if has_vel else None),
+            (scenes(psi_out), scenes(tnp_out), scenes(vel_out) if has_vel else None))
+    _launch_gd_chunk(bufs, scenes(tg), scenes(live), taps, alpha, w_reg, momentum, K, 0.0, ctl,
+                     max_sq, parts, e, 1, gd_tile_plan((Z, Y, X), taps.shape[0], _n_sm(dev)),
+                     copy_frozen=True)
+    launch_counts[kernel] += 1
+    out = (psi_out, tnp_out, vel_out, max_sq.reshape(lead))
+    return out + (e.reshape(lead),) if with_energy else out
 
 
 def gd_iteration(
     psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
     momentum: Optional[float], K: Optional[int], with_energy: bool = False,
 ):
-    """Kernel A: one gradient-descent iteration (two launches, three with the
-    energy; counted once): the launch of :func:`gd_iteration_scenes` with
-    one scene and no scene axis.
+    """Kernel A: one gradient-descent iteration in one launch (two more
+    small ones with the energy; counted once): the launch of
+    :func:`gd_iteration_scenes` with one scene and no scene axis. The solve
+    loops run A through :class:`GdLoop`, many iterations per call.
 
     psi f32[3,Z,Y,X]; tnp, tg, live f32[Z,Y,X]; vel f32[3,Z,Y,X] when
     momentum is set, else ignored; taps f32[s] (s odd, <= 11). Returns
@@ -419,8 +506,8 @@ def gd_iteration_scenes(
     psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
     momentum: Optional[float], K: Optional[int], active, with_energy: bool = False,
 ):
-    """Kernel A over a leading scene axis: one launch of each of A's bodies
-    for all S scenes (counted once, apart from :func:`gd_iteration`).
+    """Kernel A over a leading scene axis: one launch for all S scenes
+    (counted once, apart from :func:`gd_iteration`).
 
     psi f32[S,3,Z,Y,X]; tnp, tg, live f32[S,Z,Y,X]; vel f32[S,3,Z,Y,X] when
     momentum is set, else ignored; active bool or uint8 [S] on the same
@@ -439,6 +526,134 @@ def gd_iteration_scenes(
         raise TypeError("gd_iteration_scenes: active is a bool tensor of shape (S,)")
     return _launch_gd("gd_iteration_scenes", tuple(psi.shape[:1]), psi, tnp, vel, tg, live,
                       taps, alpha, w_reg, momentum, K, active, with_energy)
+
+
+def gd_iterations_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, thresh,
+                        active, n: int, with_energy: bool = False):
+    """Up to n chained :func:`gd_iteration_scenes_plain` steps with the
+    device's stop rule: scene s runs step k iff ``active[s]`` and, for k >
+    0, it ran step k - 1 with sqrt(max_sq) > thresh (in float32; a NaN norm
+    stops). A stopped scene keeps its state. active is a bool array [S] on
+    the host. Returns (psi, tnp, vel, done int32[S] — the steps each scene
+    ran —, max_sq float32[n, S] with 0 where a scene did not run, and the
+    data energy float32[S] after step n - 1 of the scenes that ran it, 0
+    for the others; None without with_energy), the last three on the host."""
+    import numpy as np
+
+    S = psi.shape[0]
+    on = np.asarray(active, bool).copy()
+    done = np.zeros(S, np.int32)
+    rows = np.zeros((n, S), np.float32)
+    e = np.zeros(S, np.float32) if with_energy else None
+    for k in range(n):
+        if k:
+            on &= np.sqrt(rows[k - 1]) > np.float32(thresh)
+        if not on.any():
+            break
+        last = with_energy and k == n - 1
+        out = gd_iteration_scenes_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum,
+                                        K, torch.as_tensor(on), last)
+        psi, tnp, vel = out[:3]
+        rows[k] = out[3].cpu().numpy()
+        done += on
+        if last:
+            e = out[4].cpu().numpy()
+    return psi, tnp, vel, done, rows, e
+
+
+class GdLoop:
+    """The state of one solve's gradient-descent loop on kernel A, advanced
+    in chunks of iterations with one host read per chunk.
+
+    psi f32[S,3,Z,Y,X], tnp, tg, live f32[S,Z,Y,X] (an unbatched solve
+    passes S = 1 views); ``kernel`` names the count the iterations go under
+    ("gd_iteration" or "gd_iteration_scenes"). On the card the state lives
+    in a ping-pong pair of buffers allocated here, once per solve (psi and
+    tnp are copied in); :meth:`run` enqueues n launches in one call
+    (sobfu_gd_iterations), each of which tests the stop rule of
+    :func:`gd_iterations_plain` on the card, and reads the outcome back
+    once. On the CPU it runs :func:`gd_iterations_plain`. energy: the loop
+    will ask for the data energy (scratch for its partials).
+    """
+
+    def __init__(self, kernel: str, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K,
+                 thresh, energy: bool = False):
+        import numpy as np
+
+        self.kernel = kernel
+        self.args = (tg, live, taps, alpha, w_reg, momentum, K, float(thresh))
+        S = psi.shape[0]
+        self.count = np.zeros(S, np.int64)  # iterations each scene has done
+        self.cpu = _on_cpu(psi)
+        vel = torch.zeros_like(psi) if momentum is not None else None
+        if self.cpu:
+            self.cur = (psi, tnp, vel)
+            return
+        dev = psi.device
+        dims = tuple(psi.shape[-3:])
+        other = (torch.empty_like(psi), torch.empty_like(tnp),
+                 torch.empty_like(psi) if vel is not None else None)
+        self.bufs = ((psi.clone(), tnp.clone(), vel), other)
+        self.plan = gd_tile_plan(dims, taps.shape[0], _n_sm(dev))
+        # one device buffer for everything the host reads per chunk: ctl rows
+        # 0..GD_CHUNK (int32), then the norm rows and the energy (float32 bits)
+        self.out = torch.zeros((2 * GD_CHUNK + 2, S), dtype=torch.int32, device=dev)
+        self.parts = (torch.empty((S, _n_tiles(dims)), dtype=torch.float32, device=dev)
+                      if energy else None)
+
+    def run(self, n: int, active, with_energy: bool = False):
+        """Up to n (<= GD_CHUNK) iterations from the current state; active
+        bool[S] (host) names the scenes that run. Returns (done int32[S],
+        max_sq float32[n, S], energy float32[S] or None) as
+        :func:`gd_iterations_plain` does, on the host."""
+        import numpy as np
+
+        if not 1 <= n <= GD_CHUNK:
+            raise ValueError(f"a chunk is 1..{GD_CHUNK} iterations, got {n}")
+        active = np.asarray(active, bool)
+        tg, live, taps, alpha, w_reg, momentum, K, thresh = self.args
+        if self.cpu:
+            *self.cur, done, rows, e = gd_iterations_plain(
+                *self.cur, tg, live, taps, alpha, w_reg, momentum, K, thresh, active, n,
+                with_energy)
+        else:
+            if with_energy and self.parts is None:
+                raise ValueError("this GdLoop was made without energy")
+            S = active.shape[0]
+            ctl, rest = self.out[:n + 1], self.out[GD_CHUNK + 1:].view(torch.float32)
+            max_sq, e_dev = rest[:n], rest[GD_CHUNK]
+            start = np.where(active, self.count, -self.count - 1).astype(np.int32)
+            ctl[0].copy_(torch.from_numpy(start))
+            _launch_gd_chunk(self.bufs, tg, live, taps, alpha, w_reg, momentum, K, thresh, ctl,
+                             max_sq, self.parts, e_dev if with_energy else None, n, self.plan)
+            host = self.out.cpu().numpy()
+            end = host[n]
+            done = (np.where(end >= 0, end, -end - 1) - self.count).astype(np.int32)
+            rest = host[GD_CHUNK + 1:].view(np.float32)
+            rows = rest[:n].copy()
+            e = rest[GD_CHUNK].copy() if with_energy else None
+            if (done < 0).any() or (done > n).any() or S != end.shape[0]:
+                raise RuntimeError(f"kernel A's iteration counter is inconsistent: {end}")
+        self.count += done
+        host_reads[self.kernel] += 1
+        if not self.cpu:  # launches are counted where they happen: on the card
+            ran = int(done.max())
+            launch_counts[self.kernel] += ran
+            empty_launches[self.kernel] += n - ran
+        return done, rows, e
+
+    def state(self):
+        """(psi, tnp, vel or None) after the iterations run so far, with the
+        scene axis; on the card views of the loop's buffers where every
+        scene's state lies in the same one."""
+        if self.cpu:
+            return tuple(self.cur)
+        par = self.count & 1
+        if (par == par[0]).all():
+            return self.bufs[int(par[0])]
+        return tuple(
+            None if a is None else torch.stack([(b if p else a)[s] for s, p in enumerate(par)])
+            for a, b in zip(*self.bufs))
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -6,8 +6,9 @@ and fuses a batch of S independent scenes per call. In the JAX package
 this is the step on a one-device mesh (``n_scene = n_z = 1``), where
 ``jax.vmap`` runs the scenes' while_loops inside the device. Here the S
 scenes share every iteration's launch of kernel A
-(:func:`sobfu_tpu_torch.ops.kernels.gd_iteration_scenes`), and the host's
-stop test reads the S max norms in one transfer per iteration. A scene whose
+(:func:`sobfu_tpu_torch.ops.kernels.gd_iteration_scenes`, driven in chunks
+by :class:`sobfu_tpu_torch.ops.kernels.GdLoop`); the stop test runs per
+scene on the device and the host reads the outcome once per chunk. A scene whose
 predicate turns false keeps its state while the others go on, as under
 vmap; the loop ends when no scene is active. The warps (B), the inverse
 (C), the warp + fuse (D), the resamples and the integration run once per
@@ -69,7 +70,11 @@ def _gd_loop_scenes(psi, tg, live, taps, alpha, w_reg, max_iter, thresh, K, *,
     the stall test (stall_window > 0) compares A's energy 0.5 sum (tnp' -
     tg)^2, read on the host only at check iterations, with the previous
     check's. The scenes still active have all run the same number of
-    iterations, so they share each check. Returns (psi, tnp, iters
+    iterations, so they share each check. The loop advances in chunks of up
+    to ``kernels.GD_CHUNK`` iterations (``kernels.GdLoop``): the norm test
+    runs per scene on the device, a scene that stops keeps its state, and
+    the host reads the outcome once per chunk; a chunk ends at each stall
+    check and at max_iter, so every count is the per-iteration loop's. Returns (psi, tnp, iters
     int32[S], mnorm float32[S]), the last two on the host.
     """
     S = psi.shape[0]
@@ -77,33 +82,31 @@ def _gd_loop_scenes(psi, tg, live, taps, alpha, w_reg, max_iter, thresh, K, *,
     taps_t = torch.as_tensor(np.asarray(taps, np.float32), device=dev)
     alpha, w_reg = float(np.float32(alpha)), float(np.float32(w_reg))
     thresh, rel = np.float32(thresh), np.float32(stall_rel)
-    tnp = _warp_scenes(live, psi, K)
-    vel = torch.zeros_like(psi) if momentum is not None else None
+    loop = kernels.GdLoop("gd_iteration_scenes", psi, _warp_scenes(live, psi, K), tg, live,
+                          taps_t, alpha, w_reg, momentum, K, thresh, energy=bool(stall_window))
     it = np.zeros(S, np.int32)
     mnorm = np.full(S, np.inf, np.float32)
     e_ref = np.full(S, np.inf, np.float32)
     stalled = np.zeros(S, bool)
-    active_was, active_dev = None, None
     while True:
         active = (it < max_iter) & (mnorm > thresh) & ~stalled
         if not active.any():
             break
-        if active_was is None or not np.array_equal(active, active_was):
-            active_was, active_dev = active, torch.as_tensor(active, device=dev)
-        it1 = int(it[active][0]) + 1
-        at_check = bool(stall_window) and it1 % stall_window == 0
-        out = kernels.gd_iteration_scenes(psi, tnp, vel, tg, live, taps_t, alpha, w_reg,
-                                          momentum, K, active_dev, with_energy=at_check)
-        psi, tnp, vel = out[:3]
-        read = torch.sqrt(out[3])
-        host = (torch.cat([read, out[4]]) if at_check else read).cpu().numpy()
-        mnorm = np.where(active, host[:S], mnorm)
-        it = it + active.astype(np.int32)
+        it0 = int(it[active][0])
+        n = min(kernels.GD_CHUNK, max_iter - it0)
+        if stall_window:
+            n = min(n, stall_window - it0 % stall_window)
+        at_check = bool(stall_window) and (it0 + n) % stall_window == 0
+        done, rows, e_now = loop.run(n, active, with_energy=at_check)
+        last = rows[np.maximum(done, 1) - 1, np.arange(S)]
+        mnorm = np.where(active, np.sqrt(last), mnorm)
+        it = it + done
         if at_check:
-            e_now = host[S:]
-            stall = (it1 >= 2 * stall_window) & (e_ref - e_now < rel * np.abs(e_now))
-            stalled = stalled | (active & stall)
-            e_ref = np.where(active, e_now, e_ref)
+            ran = active & (done == n)  # the scenes that ran the check iteration
+            stall = (it0 + n >= 2 * stall_window) & (e_ref - e_now < rel * np.abs(e_now))
+            stalled = stalled | (ran & stall)
+            e_ref = np.where(ran, e_now, e_ref)
+    psi, tnp, _ = loop.state()
     return psi, tnp, it, mnorm
 
 

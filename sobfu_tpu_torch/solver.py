@@ -191,7 +191,10 @@ def estimate_psi(
     GD). record_energy: per-iteration rows (pre-update data energy,
     pre-update reg energy, update norm). stall_window / stall_rel: the
     data-energy stall stop (0 = off); the energy comes from kernel A's (or
-    E's) own output and is read on the host only at check iterations.
+    E's) own output and is read on the host only at check iterations. On
+    kernel A the loop runs in chunks of up to ``kernels.GD_CHUNK``
+    iterations with the norm test on the device and one host read a chunk
+    (``kernels.GdLoop``): the iteration count is the per-iteration loop's.
     skip_tails: no inverse and no tail warps (coarse pyramid levels):
     psi_inv = psi and the volumes pass through. skip_inv_warps: return
     pass-throughs for phi_global o psi_inv (the no-log loop).
@@ -231,53 +234,74 @@ def estimate_psi(
     def warp1(vol, at, floor=False):
         return kernels.warp(vol[None], at, K, (floor,))[0]
 
-    def gd_step(state: SolverState) -> SolverState:
-        """n_step iterations; the stop values are the last iteration's."""
+    def stall_check(e_now, e_ref, it1):
+        """(stalled, the new reference) at check iteration it1, in float32."""
+        e_now = np.float32(e_now)
+        stalled = bool(
+            it1 >= 2 * stall_window
+            and np.float32(e_ref) - e_now < np.float32(stall_rel) * abs(e_now)
+        )
+        return stalled, float(e_now)
+
+    def gd_chunks(state: SolverState) -> SolverState:
+        """n_step iterations in one launch of kernel E; the stop values are
+        the last iteration's."""
         psi, tsdf_n_psi = state.psi, state.tsdf_n_psi
         it1 = state.iter + n_step
         at_check = bool(stall_window) and it1 % stall_window == 0
-        args = (psi, tsdf_n_psi, state.vel, tsdf_global, tsdf_n, taps_t, alpha, w_reg,
-                momentum, K)
-        if n_step == 1:
-            out = kernels.gd_iteration(*args, with_energy=at_check)
-            psi_new, tsdf_new, vel_new, max_sq = out[:4]
-            e = out[4] if at_check else None
-            mnorm = torch.sqrt(max_sq)
-            if record_energy:
-                # pre-update energies beside the update norm (solver.py row layout)
-                energy[min(state.iter, energy_cap - 1)] = torch.stack(
-                    [data_energy(tsdf_global, tsdf_n_psi), reg_energy_sobolev(psi), mnorm]
-                )
-        else:
-            out = kernels.gd_multi(*args, n_step, with_energy=at_check,
-                                   with_verbose=record_energy)
-            psi_new, tsdf_new, vel_new = out.psi, out.tnp, out.vel
-            mnorm = torch.sqrt(out.mx_sq[-1])
-            e = out.e_data[-1] if at_check else None
-            if record_energy:
-                row0 = max(0, min(state.iter, energy_cap - n_step))
-                energy[row0:row0 + n_step] = torch.stack(
-                    [out.e_pre, out.e_reg, torch.sqrt(out.mx_sq)], dim=1
-                )
+        out = kernels.gd_multi(psi, tsdf_n_psi, state.vel, tsdf_global, tsdf_n, taps_t, alpha,
+                               w_reg, momentum, K, n_step, with_energy=at_check,
+                               with_verbose=record_energy)
+        mnorm = torch.sqrt(out.mx_sq[-1])
+        kernels.host_reads["gd_multi"] += 2 if at_check else 1
+        if record_energy:
+            row0 = max(0, min(state.iter, energy_cap - n_step))
+            energy[row0:row0 + n_step] = torch.stack(
+                [out.e_pre, out.e_reg, torch.sqrt(out.mx_sq)], dim=1
+            )
         e_ref, stalled = state.e_ref, state.stalled
         if at_check:
-            e_now = np.float32(float(e))
-            stalled = stalled or (
-                it1 >= 2 * stall_window
-                and np.float32(e_ref) - e_now < np.float32(stall_rel) * abs(e_now)
-            )
-            e_ref = float(e_now)
-        return SolverState(psi_new, tsdf_new, it1, float(mnorm), vel_new, e_ref, stalled)
+            stall, e_ref = stall_check(float(out.e_data[-1]), e_ref, it1)
+            stalled = stalled or stall
+        return SolverState(out.psi, out.tnp, it1, float(mnorm), out.vel, e_ref, stalled)
 
-    # the stop test reads the max norm on the host after every step: the
-    # same iteration count as the JAX while_loop's predicate
-    state = SolverState(
-        psi, warp1(tsdf_n, psi), 0, float("inf"),
-        torch.zeros_like(psi) if momentum is not None else None,
-    )
-    while state.iter < max_iter and state.max_norm > thresh and not state.stalled:
-        state = gd_step(state)
-    psi, tsdf_n_psi, it, mnorm = state.psi, state.tsdf_n_psi, state.iter, state.max_norm
+    tnp0 = warp1(tsdf_n, psi)
+    if n_step > 1:
+        # kernel E: the stop test reads the host once per chunk and a
+        # mid-chunk stop overshoots (the JAX fused_gd_multi_fold contract)
+        state = SolverState(psi, tnp0, 0, float("inf"),
+                            torch.zeros_like(psi) if momentum is not None else None)
+        while state.iter < max_iter and state.max_norm > thresh and not state.stalled:
+            state = gd_chunks(state)
+        psi, tsdf_n_psi, it, mnorm = state.psi, state.tsdf_n_psi, state.iter, state.max_norm
+    else:
+        # kernel A: chunks of iterations with the norm test on the device
+        # (kernels.GdLoop), so the count is the JAX while_loop's exactly; a
+        # chunk ends at each stall check (decided here, in float32) and at
+        # max_iter. record_energy reads the state before every iteration.
+        loop = kernels.GdLoop("gd_iteration", psi[None], tnp0[None], tsdf_global[None],
+                              tsdf_n[None], taps_t, alpha, w_reg, momentum, K, thresh,
+                              energy=bool(stall_window))
+        it, mnorm, e_ref, stalled = 0, float("inf"), float("inf"), False
+        one = np.ones(1, bool)
+        while it < max_iter and mnorm > thresh and not stalled:
+            n = min(1 if record_energy else kernels.GD_CHUNK, max_iter - it)
+            if stall_window:
+                n = min(n, stall_window - it % stall_window)
+            at_check = bool(stall_window) and (it + n) % stall_window == 0
+            if record_energy:
+                # pre-update energies beside the update norm (solver.py row layout)
+                psi_s, tnp_s, _ = loop.state()
+                pre = [data_energy(tsdf_global, tnp_s[0]), reg_energy_sobolev(psi_s[0])]
+            done, rows, e = loop.run(n, one, with_energy=at_check)
+            d = int(done[0])
+            it += d
+            mnorm = float(np.sqrt(rows[d - 1, 0]))
+            if record_energy:
+                energy[min(it - 1, energy_cap - 1)] = torch.stack(pre + [pre[0].new_tensor(mnorm)])
+            if at_check and d == n:
+                stalled, e_ref = stall_check(e[0], e_ref, it)
+        psi, tsdf_n_psi = (t[0] for t in loop.state()[:2])
 
     if skip_tails:
         return SolveResult(psi, psi, tsdf_n_psi, weight_n, tsdf_global, weight_global, it,

@@ -425,3 +425,126 @@ def test_frame_step_on_card_matches_cpu(cuda, fine_window):
     solo = run(cuda, slice(0, 1))
     for g, o in zip(got, solo):
         assert torch.equal(g[0].cpu(), o[0].cpu())
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: A in one launch, the chunked loop, B's variants
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(12, 16, 20), (16, 16, 16), (9, 11, 37), (40, 24, 72)])
+@pytest.mark.parametrize("s,K,momentum", [(7, 2, 0.9), (3, None, None), (11, 1, 0.95),
+                                          (5, 2, None), (9, None, 0.9), (1, 1, None)])
+def test_gd_iteration_one_launch_matches_plain(cuda, dims, s, K, momentum):
+    """A on grids under, at and over a tile's 8 x 32 extent (masked edges,
+    several tiles and z segments), with every tap count: atol 1e-5 on the
+    state, rtol 1e-5 on the norm and the energy."""
+    d = _multi_inputs(cuda, dims)
+    taps = torch.as_tensor(np.ones(1, np.float32) if s == 1 else solver.sobolev_filter_1d(s, 0.1),
+                           device=cuda)
+    args = (d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05, 0.2, momentum, K)
+    got = kernels.gd_iteration(*args, with_energy=True)
+    want = kernels.gd_iteration_plain(*args, with_energy=True)
+    for g, w in zip(got[:3], want[:3]):
+        if w is not None:
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[3], want[3], atol=0, rtol=1e-5)
+    torch.testing.assert_close(got[4], want[4], atol=0, rtol=1e-5)
+
+
+def _chained_on_card(b, taps, momentum, K, thresh, active, n, with_energy):
+    """n gd_iteration_scenes launches with the stop rule decided on the host."""
+    dev = b["psi"].device
+    psi, tnp, vel = b["psi"], b["tnp"], b["vel"] if momentum is not None else None
+    S = psi.shape[0]
+    on = np.asarray(active, bool).copy()
+    done, rows, e = np.zeros(S, np.int32), np.zeros((n, S), np.float32), None
+    for k in range(n):
+        if k:
+            on &= np.sqrt(rows[k - 1]) > np.float32(thresh)
+        if not on.any():
+            break
+        last = with_energy and k == n - 1
+        out = kernels.gd_iteration_scenes(psi, tnp, vel, b["tg"], b["live"], taps, 0.05, 0.2,
+                                          momentum, K, torch.as_tensor(on, device=dev), last)
+        psi, tnp, vel = out[:3]
+        rows[k] = out[3].cpu().numpy()
+        done += on
+        if last:
+            e = out[4].cpu().numpy()
+    return dict(b, psi=psi, tnp=tnp, vel=vel), done, rows, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", [None, 0.5])
+def test_gd_loop_chunks_bitwise_vs_single_launches(cuda, momentum):
+    """kernels.GdLoop (16 iterations per call, the stop test on the card)
+    against 16 single launches with the stop test on the host, bit for bit,
+    over two chunks: three scenes, scene 1 frozen from the start, scene 2
+    stopping inside the first chunk (so the scenes' results lie in different
+    buffers of the ping-pong pair), the energy after each chunk; and the
+    iteration, empty-launch and host-read counts."""
+    dims, n, K = (12, 16, 40), 16, 2
+    per = [_multi_inputs(cuda, dims, seed=30 + s) for s in range(3)]
+    b = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+    b["vel"] = torch.zeros_like(b["vel"])
+    ident = fields.identity_field(dims, device=cuda)
+    b["psi"][2] = ident + 0.3 * (b["psi"][2] - ident)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    active = np.array([True, False, True])
+    _, _, rows, _ = _chained_on_card(b, taps, momentum, K, -1.0, active, n, False)
+    norms = np.sqrt(rows[:, 2])
+    j = max(k for k in range(13) if k == 0 or norms[k] < norms[:k].min())
+    thresh = float(norms[j])
+    kernels.reset_launch_counts()
+    loop = kernels.GdLoop("gd_iteration_scenes", b["psi"], b["tnp"], b["tg"], b["live"], taps,
+                          0.05, 0.2, momentum, K, thresh, energy=True)
+    ref, total, ran = b, np.zeros(3, np.int64), 0
+    for _ in range(2):
+        done, rows, e = loop.run(n, active, with_energy=True)
+        ran += int(done.max())
+        ref, want_done, want_rows, want_e = _chained_on_card(ref, taps, momentum, K, thresh,
+                                                             active, n, True)
+        assert done.tolist() == want_done.tolist()
+        np.testing.assert_array_equal(rows, want_rows)
+        if want_e is not None:
+            np.testing.assert_array_equal(e, want_e)
+        psi, tnp, vel = loop.state()
+        assert torch.equal(psi, ref["psi"]) and torch.equal(tnp, ref["tnp"])
+        if momentum is not None:
+            assert torch.equal(vel, ref["vel"])
+        total += done
+        active = active & (done == n)
+    assert total[1] == 0 and total[2] == j + 1
+    assert kernels.host_reads["gd_iteration_scenes"] == 2
+    # the loop counts the iterations that ran, the reference one per launch
+    assert kernels.launch_counts["gd_iteration_scenes"] == 2 * ran
+    assert kernels.empty_launches["gd_iteration_scenes"] == 2 * n - ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [None, 2])
+@pytest.mark.parametrize("floor", [(False,), (True,), (False, False), (True, False),
+                                   (False, True), (True, True), (False, False, False),
+                                   (True, False, True), (False, True, True), (True, True, True),
+                                   (False, True, False, True)])
+def test_warp_variants_match_plain(cuda, K, floor):
+    """B's compile-time variants (exact / window x C = 1, 2, 3 x floor masks)
+    and the generic kernel (C = 4): atol 1e-5 on the trilinear channels,
+    bitwise on the floor ones; on the parity grid and on one whose width is
+    no multiple of 4."""
+    for dims in (DIMS, (7, 9, 13)):
+        rng = np.random.default_rng(41)
+        ident = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")[::-1])
+        psi = torch.as_tensor(ident + rng.uniform(-3.0, 3.0, (3,) + dims), dtype=torch.float32,
+                              device=cuda)
+        vol = torch.as_tensor(rng.integers(0, 5, (len(floor),) + dims), dtype=torch.float32,
+                              device=cuda) * 0.25
+        got = kernels.warp(vol, psi, K, floor)
+        want = kernels.warp_plain(vol, psi, K, floor)
+        for c, fl in enumerate(floor):
+            if fl:
+                assert torch.equal(got[c], want[c]), (dims, c)
+            else:
+                torch.testing.assert_close(got[c], want[c], atol=1e-5, rtol=0)

@@ -1,0 +1,158 @@
+"""Kernels B and A of the PyTorch port timed on one CUDA card, for comparing
+two trees inside one call.
+
+    python tools/bench_torch_kernels.py [--root DIR] [--label NAME] [--out FILE]
+
+imports ``sobfu_tpu_torch`` from DIR (default: this checkout), builds its
+kernels and times, at the main path's shapes and with chip_smoke.py's two
+yardsticks (``cuda_ms``: one event pair around a run of 20 calls, median of
+7 runs; ``device_ms``: torch.profiler's device time per call):
+
+  B   the exact warp of one 128^3 volume at psi_x (+-3.5 voxels) and at
+      psi_w (+-1.8), each in turns with torch.nn.functional.grid_sample on
+      the same inputs (B, library, library, B); the K=2 warp at psi_w; the
+      mixed warp (C = 2: a trilinear and a floor channel, K=2, the tails'
+      warp); three trilinear channels (warp_field3, K=2)
+  A   one iteration at 128^3, K=2, 7 taps, without and with momentum 0.95;
+      at 64^3, K=1, momentum 0.95; over S = 4 scenes of 128^3, K=2,
+      momentum 0.95; and, where the tree has kernels.GdLoop, the same through
+      chunks of 16 iterations per call (per iteration)
+
+Only wrappers that every tree of the port has are called, so the same
+script measures a tree from before a kernel's redesign and one after it:
+
+    mkdir -p _checkout/parent && git archive <commit> | tar -x -C _checkout/parent
+    for r in _checkout/parent . . _checkout/parent; do
+        python tools/bench_torch_kernels.py --root $r --label $r; done
+
+Prints one JSON object per run (the card's name and power limit in it);
+--out appends it to FILE. Needs a CUDA card; fails without one.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE, help="the tree whose sobfu_tpu_torch is timed")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--out", default=None, help="append the JSON line to this file")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch_kernels: needs a CUDA card", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from sobfu_tpu_torch import fields, solver
+    from sobfu_tpu_torch.ops import _build, kernels
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    check = os.path.abspath(os.path.dirname(os.path.dirname(kernels.__file__)))
+    if os.path.dirname(check) != root:
+        raise RuntimeError(f"sobfu_tpu_torch came from {check}, not from {root}")
+    _build.library()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    def both(fn):
+        return {"ms": smoke.cuda_ms(fn), "device_ms": smoke.device_ms(fn)}
+
+    def scene(n):
+        dims, vs = (n, n, n), 1.0 / n
+        tg, _ = init_sphere(dims, (vs,) * 3, (0.5, 0.5, 0.5), 0.2, 8 * vs, 3 * vs, device=dev)
+        live, _ = init_sphere(dims, (vs,) * 3, (0.49, 0.5, 0.5), 0.2, 8 * vs, 3 * vs, device=dev)
+        ident = fields.identity_field(dims, device=dev)
+        return dims, tg, live, ident
+
+    dims, tg, live, ident = scene(128)
+    psi_w = ident + t(rng.uniform(-1.8, 1.8, (3,) + dims))
+    psi_x = ident + t(rng.uniform(-3.5, 3.5, (3,) + dims))
+    tnp = live + t(rng.normal(0.0, 0.05, dims))
+    vel = t(rng.normal(0.0, 0.1, (3,) + dims))
+    wgc = t(rng.integers(0, 4, dims).astype(np.float32))
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=dev)
+    vol1 = tg[None].contiguous()
+    vol2 = torch.stack([tg, wgc]).contiguous()
+    field = ident + t(rng.uniform(-2.0, 2.0, (3,) + dims))
+    out = {"label": args.label or root, "card": smoke.nvidia_smi(),
+           "torch": torch.__version__}
+
+    for name, psi in (("psi_x", psi_x), ("psi_w", psi_w)):
+        lib, err = smoke.library_warp(torch, tg, psi, kernels.warp(vol1, psi, None, (False,))[0])
+        if err > 1e-4:
+            raise RuntimeError(f"grid_sample differs from B at {name}: {err}")
+
+        def b_call(psi=psi):
+            return kernels.warp(vol1, psi, None, (False,))
+
+        turns = [both(b_call), both(lib), both(lib), both(b_call)]
+        out[f"warp_exact_{name}"] = [turns[0], turns[3]]
+        out[f"grid_sample_{name}"] = [turns[1], turns[2]]
+    out["warp_K2_psi_w"] = both(lambda: kernels.warp(vol1, psi_w, 2, (False,)))
+    out["warp_mixed_K2_psi_w"] = both(lambda: kernels.warp(vol2, psi_w, 2, (False, True)))
+    out["warp_field3_K2_psi_w"] = both(lambda: kernels.warp_field3(field, psi_w, 2))
+
+    for mu in (None, 0.95):
+        a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, mu, 2)
+        out[f"gd_iteration_128_K2_momentum_{mu}"] = both(lambda a=a: kernels.gd_iteration(*a))
+    a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 2)
+    out["gd_iteration_128_K2_momentum_0.95_energy"] = both(
+        lambda: kernels.gd_iteration(*a, with_energy=True))
+
+    S = 4
+    b = (torch.stack([psi_w] * S), torch.stack([tnp] * S), torch.stack([vel] * S),
+         torch.stack([tg] * S), torch.stack([live] * S))
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    out["gd_iteration_scenes_4x128_K2_momentum_0.95"] = both(
+        lambda: kernels.gd_iteration_scenes(*b, taps, 0.05, 0.2, 0.95, 2, on))
+    del b
+
+    tnp128, tg128, live128 = tnp, tg, live
+    dims, tg, live, ident = scene(64)
+    psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+    tnp = live + t(rng.normal(0.0, 0.05, dims))
+    vel = t(rng.normal(0.0, 0.1, (3,) + dims))
+    out["gd_iteration_64_K1_momentum_0.95"] = both(
+        lambda: kernels.gd_iteration(psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1))
+
+    if hasattr(kernels, "GdLoop"):  # a tree with the chunked loop: A as the solves run it
+        b = (torch.stack([psi_w] * S), torch.stack([tnp128] * S), torch.stack([tg128] * S),
+             torch.stack([live128] * S))
+        out["gd_loop_128_K2_momentum_None"] = smoke.timed_chunks(
+            kernels, "gd_iteration", *(a[:1] for a in b), taps, 0.05, 0.2, None, 2)
+        out["gd_loop_128_K2_momentum_0.95"] = smoke.timed_chunks(
+            kernels, "gd_iteration", *(a[:1] for a in b), taps, 0.05, 0.2, 0.95, 2)
+        out["gd_loop_scenes_4x128_K2_momentum_0.95"] = smoke.timed_chunks(
+            kernels, "gd_iteration_scenes", *b, taps, 0.05, 0.2, 0.95, 2)
+        del b
+        out["gd_loop_64_K1_momentum_0.95"] = smoke.timed_chunks(
+            kernels, "gd_iteration", psi[None], tnp[None], tg[None], live[None], taps, 0.05, 0.2,
+            0.95, 1)
+
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)) or ".", exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,10 +8,11 @@ frame 2 runs under a StageClock (preprocessing, integration and every
 level's solve timed on the host clock, a synchronise on either side of
 each); frame 3 runs under torch.profiler (CPU + CUDA activity). Prints the
 staged split, the profiled frame's wall time, the device time per kernel
-name, the device busy share (kernel time / wall time) and, from a separate
-loop of gradient-descent iterations at 128^3, the host cost per iteration
-with and without the per-iteration stop test (a host read of the max
-norm). Writes the key_averages table, a chrome trace and summary.json
+name, the device busy share (kernel time / wall time), the host reads of
+the solve loops in that frame and, from a separate loop of gradient-descent
+iterations at 128^3, the cost per iteration through the solve loops' chunks
+(the stop test on the card) beside one call per iteration with and without
+a host read of the max norm. Writes the key_averages table, a chrome trace and summary.json
 under --out. Needs a CUDA card; fails without one. --warp-window -1 runs
 the exact sampler.
 
@@ -52,8 +53,8 @@ class StageClock:
         with StageClock((solver, "estimate_psi")) as clock: fusion(depth)
 
     times each pyramid level's solve (the coarsest first, the fine level
-    last with its inverse); the solve loop reads the max norm on the host
-    every step, so the two synchronises add next to nothing.
+    last with its inverse); the solve loop reads the host once per chunk of
+    iterations, so the two synchronises add next to nothing.
     """
 
     def __init__(self, *targets):
@@ -111,8 +112,13 @@ def _device_us(evt) -> float:
 
 
 def iteration_costs(n: int = 400):
-    """Host wall time per gd_iteration at 128^3 with and without the host
-    read of the max norm, and the device time per iteration (CUDA events)."""
+    """Host wall time and CUDA-event time per iteration of kernel A at 128^3
+    three ways: through the solve loops' chunks (kernels.GdLoop: GD_CHUNK
+    iterations per call, the stop test on the card, one host read a chunk);
+    one call per iteration with a host read of the max norm after each; and
+    one call per iteration with no read (the enqueue alone)."""
+    import numpy as np
+
     from sobfu_tpu_torch import fields, solver
     from sobfu_tpu_torch.ops import kernels
     from sobfu_tpu_torch.tsdf import init_sphere
@@ -123,26 +129,39 @@ def iteration_costs(n: int = 400):
     live, _ = init_sphere(dims, (vs,) * 3, (0.49, 0.5, 0.5), 0.2, 8 * vs, 3 * vs, device=dev)
     taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=dev)
     out = {}
-    for sync in (True, False):
-        psi, tnp = fields.identity_field(dims, device=dev), live.clone()
-        for _ in range(20):
-            psi, tnp, _, mx = kernels.gd_iteration(psi, tnp, None, tg, live, taps, 1e-3, 0.2,
-                                                   None, 2)
+
+    def timed(step, n_steps, per_step):
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        for _ in range(n):
-            psi, tnp, _, mx = kernels.gd_iteration(psi, tnp, None, tg, live, taps, 1e-3, 0.2,
-                                                   None, 2)
-            if sync:
-                float(mx)
+        for _ in range(n_steps):
+            step()
         b.record()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n * 1e3
-        out["with_stop_test" if sync else "enqueue_only"] = {
-            "wall_ms_per_iter": wall, "event_ms_per_iter": a.elapsed_time(b) / n,
-        }
+        n_it = n_steps * per_step
+        return {"wall_ms_per_iter": (time.perf_counter() - t0) / n_it * 1e3,
+                "event_ms_per_iter": a.elapsed_time(b) / n_it}
+
+    ident = fields.identity_field(dims, device=dev)
+    loop = kernels.GdLoop("gd_iteration", ident[None], live[None].clone(), tg[None], live[None],
+                          taps, 1e-3, 0.2, None, 2, -1.0)
+    one = np.ones(1, bool)
+    loop.run(kernels.GD_CHUNK, one)
+    out["chunked_stop_test"] = timed(lambda: loop.run(kernels.GD_CHUNK, one),
+                                     n // kernels.GD_CHUNK, kernels.GD_CHUNK)
+    for sync in (True, False):
+        state = [ident, live.clone()]
+
+        def step():
+            state[0], state[1], _, mx = kernels.gd_iteration(state[0], state[1], None, tg, live,
+                                                             taps, 1e-3, 0.2, None, 2)
+            if sync:
+                float(mx)
+
+        for _ in range(20):
+            step()
+        out["read_every_iteration" if sync else "enqueue_only"] = timed(step, n, 1)
     return out
 
 
@@ -196,11 +215,15 @@ def main(argv=None) -> int:
     rest_ms = (staged_wall - sum(sec for *_, sec in clock.calls)) * 1e3
     print(f"frame 2 (staged): {staged_wall * 1e3:.4f} ms wall, {rest_ms:.4f} ms outside "
           f"the timed stages (pyramid resamples, fuse)")
+    from sobfu_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fusion(frames[3])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    host_reads = dict(kernels.host_reads)
     ka = prof.key_averages()
     kernels_us = {}
     for e in ka:
@@ -224,6 +247,7 @@ def main(argv=None) -> int:
         "coarse_iters": fusion.last_solve.coarse_iters,
         "device_kernel_s": device_us * 1e-6,
         "device_busy_share": device_us * 1e-6 / wall if wall else None,
+        "host_reads": host_reads,
         "kernels": {k: {"device_ms": us / 1e3, "calls": n} for k, (us, n) in top},
         "iteration_loop": iteration_costs(),
     }
