@@ -11,7 +11,12 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 CUDA tensors at the path's shapes (A-D at 128^3, 7 taps,
                 K=2 and the exact mode; A's stall energy, rtol 1e-5; E at
                 the coarse level's 64^3, K=1, momentum 0.95, 16 iterations,
-                with and without the verbose rows; F at 128^3 with Kf=1,
+                with and without the verbose rows, and its loop (kernels.
+                GdMultiLoop: 8 launches a host read, the stop test on the
+                card) bit for bit against one launch a chunk with a norm
+                stop inside a chunk, a cap of 40 and a stall stop; C at
+                128^3, K=2, 3 warm steps, at 64^3, K=1, 3 warm steps and at
+                128^3, 48 exact steps; F at 128^3 with Kf=1,
                 Kw=2 and Kf=2, Kw=2; B on three channels, warp_field3, at
                 128^3, K=2, inside and beyond the window): atol 1e-5,
                 bitwise for the floor warp, the fuse and F, and E bit for
@@ -39,9 +44,10 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 MAX_UPDATE_NORM=4e-3, STALL_WINDOW=16, STALL_REL=1e-2; the
                 multigrid inverse with the half-res carry) at 128^3, 4
                 frames; per frame the wall time, coarse and fine iterations,
-                the host reads of the solve loops (one per chunk of 16
-                iterations or stall check, not one per iteration: at most
-                MAX_ITER / 16 + 2 per level, or the phase fails),
+                the host reads of the solve loops (kernel A's: one per chunk
+                of 16 iterations or stall check, not one per iteration: at
+                most MAX_ITER / 16 + 2 per level; kernel E's: one per 8
+                chunks of 16; or the phase fails), E's share of them,
                 why the fine level stopped, and each level's solve timed on
                 its own (ms per iteration); all five kernels must have
                 launched (E on the 64^3 coarse level), psi_inv is carried
@@ -191,21 +197,24 @@ def device_ms(fn, reps: int = 20) -> float:
     """The profiler's device time per call of fn(): the self device time of
     every CUDA activity (kernels, memsets, copies) of reps calls under
     torch.profiler, over reps. Where a call is several kernels it is their
-    sum; host gaps between them are left out."""
+    sum; host gaps between them are left out. A run that records no device
+    activity is repeated, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     device_us = tool("profile_torch_frame")._device_us
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", "")))
-    check(total > 0, "torch.profiler recorded no device time")
-    return total / reps * 1e-3
+    for _ in range(3):  # the profiler now and then records no device activity: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(device_us(e) for e in prof.key_averages()
+                    if "CUDA" in str(getattr(e, "device_type", "")))
+        if total > 0:
+            return total / reps * 1e-3
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def gd_ops(n_taps: int, window: bool, momentum: bool, energy: bool) -> int:
@@ -379,23 +388,7 @@ def check_kernels(torch, kernels, fields, solver):
     results["warp"]["also"] = also
 
     # C: inverse fixed point (warm 3 steps in the window, 48 exact from identity)
-    errs = []
-    psi_small = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
-    warm = kernels.inverse_fixed_point_plain(psi_small, 2, 2)
-    for K, iters, init in ((2, 3, warm), (2, 3, None), (None, 48, None)):
-        got = kernels.inverse_fixed_point(psi_small, iters, K, init)
-        ref = kernels.inverse_fixed_point_plain(psi_small, iters, K, init)
-        e = max_abs(got, ref)
-        log("kernels", f"inverse_fixed_point K={K} iters={iters} "
-            f"warm={init is not None}: max|d|={e:.3e}")
-        check(e <= 1e-5, "inverse_fixed_point disagrees with its plain version")
-        errs.append(e)
-    times = timed(lambda: kernels.inverse_fixed_point(psi_small, 3, 2, warm))
-    plain = plain_ms(lambda: kernels.inverse_fixed_point_plain(psi_small, 3, 2, warm))
-    # per step: the taps, three trilinear channels, identity minus the sample
-    results["inverse_fixed_point"] = row(
-        max(errs), times, plain, nbytes(psi_small, warm, psi_small),
-        n * (3 + 3 * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + 3)))
+    results["inverse_fixed_point"] = check_inverse(torch, kernels, fields, t, rng)
 
     # D: warp_fuse, bitwise
     errs = []
@@ -475,6 +468,56 @@ def check_kernels(torch, kernels, fields, solver):
             f"ms plain, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({where.get(name, '128^3, K=2')})")
     return results
+
+
+def check_inverse(torch, kernels, fields, t, rng):
+    """Kernel C at its three paths' shapes: the slice's warm window inverse
+    (128^3, K=2, 3 steps from a warm start), the pyramid's multigrid coarse
+    inverse (64^3, K=1, 3 warm steps) and the shipped ini's exact one (128^3,
+    48 steps from the identity), and 3 steps at 128^3, K=2 from the
+    identity (checked, not timed). Each within 1e-5 of its plain version,
+    and whether bit for bit. Returns the
+    report row (the slice's shape) with the other two shapes under "also"."""
+    dev = torch.device(DEVICE)
+
+    def case(n, K, iters, warm):
+        dims = (n, n, n)
+        psi = fields.identity_field(dims, device=dev) + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+        init = kernels.inverse_fixed_point_plain(psi, 2, K) if warm else None
+        return psi, iters, K, init
+
+    rows, errs = {}, []
+    for label, (n, K, iters, warm) in (
+        ("128^3, K=2, 3 warm steps", (DIM, 2, 3, True)),
+        ("64^3, K=1, 3 warm steps", (DIM // 2, 1, 3, True)),
+        ("128^3, exact, 48 steps from the identity", (DIM, None, 48, False)),
+        ("128^3, K=2, 3 steps from the identity", (DIM, 2, 3, False)),
+    ):
+        args = case(n, K, iters, warm)
+        got = kernels.inverse_fixed_point(*args)
+        ref = kernels.inverse_fixed_point_plain(*args)
+        e = max_abs(got, ref)
+        log("kernels", f"inverse_fixed_point {label}: max|d|={e:.3e} bitwise={bitwise(got, ref)}")
+        check(e <= 1e-5, "inverse_fixed_point disagrees with its plain version")
+        errs.append(e)
+        if "identity" in label and K is not None:
+            continue
+        psi, _, _, init = args
+        # the displacement once, then per step the taps and, per channel, a
+        # trilinear blend and the identity minus it
+        taps = TAPS_OPS["exact" if K is None else "window"]
+        rows[label] = row(e, timed(lambda: kernels.inverse_fixed_point(*args)),
+                          plain_ms(lambda: kernels.inverse_fixed_point_plain(*args)),
+                          nbytes(psi, init, psi),
+                          psi[0].numel() * (3 + iters * (taps + 3 * (TRILINEAR_OPS + 1))))
+        r = rows[label]
+        log("kernels", f"inverse_fixed_point {label}: {r['ms']:.4f} ms kernel, "
+            f"{r['device_ms']:.4f} ms device, {r['plain_ms']:.4f} ms plain, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    main, *also = rows
+    out = dict(rows[main], max_abs_err=max(errs))
+    out["also"] = {k: rows[k] for k in also}
+    return out
 
 
 def gd_inputs(torch, dims, seed, amp, scenes=None):
@@ -751,16 +794,74 @@ def check_gd_multi(torch, kernels, fields, solver):
     )
     log("kernels", f"gd_multi vs 16 chained gd_iteration: bitwise={bit}")
     check(bit, "gd_multi is not bit-identical to 16 chained gd_iteration launches")
+    check_gd_multi_loop(torch, kernels, solver, psi, tnp, tg, live, taps)
     times = timed(lambda: kernels.gd_multi(*args))
     t_a = {"ms": cuda_ms(chained, reps=5), "device_ms": device_ms(chained, reps=5)}
     plain = plain_ms(lambda: kernels.gd_multi_plain(*args))
+    loop = kernels.GdMultiLoop(psi, tnp, tg, live, taps, 0.05, 0.2, 0.95, 1, -1.0, 1 << 30, 16)
+    m = kernels.GD_MULTI_LAUNCHES
+    t_loop = {"ms": cuda_ms(lambda: loop.run(m), reps=4) / m,
+              "device_ms": device_ms(lambda: loop.run(m), reps=4) / m}
     log("kernels", f"gd_multi 16 iterations at 64^3: {times['ms']:.4f} ms one launch "
-        f"({times['device_ms']:.4f} ms device), 16 chained gd_iteration (with energy) "
-        f"{t_a['ms']:.4f} ms ({t_a['device_ms']:.4f} ms device), {plain:.4f} ms plain")
+        f"({times['device_ms']:.4f} ms device), through GdMultiLoop ({m} launches a call) "
+        f"{t_loop['ms']:.4f} ms a launch ({t_loop['device_ms']:.4f} ms device), 16 chained "
+        f"gd_iteration (with energy) {t_a['ms']:.4f} ms ({t_a['device_ms']:.4f} ms device), "
+        f"{plain:.4f} ms plain")
     out = kernels.gd_multi(*args)
     return row(max(errs), times, plain,
                nbytes(psi, tnp, vel, tg, live, out.psi, out.tnp, out.vel, out.mx_sq),
                16 * tg.numel() * gd_ops(TAPS, True, True, False))
+
+
+def check_gd_multi_loop(torch, kernels, solver, psi, tnp, tg, live, taps):
+    """Kernel E's loop (kernels.GdMultiLoop: up to GD_MULTI_LAUNCHES launches
+    a host read, the stop test on the card) against one launch a chunk with
+    the test on the host, bit for bit (state, velocity, iterations, last
+    norm, the stall) at the coarse level's shapes (64^3, K=1, momentum
+    0.95): a norm stop inside a chunk, a cap of 40 (overshot to 48) and a
+    stall stop; and the launch, empty-launch and host-read counts."""
+    def per_chunk(max_iter, thresh, stall_window, stall_rel):
+        p, q, v = psi, tnp, torch.zeros_like(psi)
+        it, mnorm, e_ref, stalled, rows = 0, float("inf"), float("inf"), False, []
+        while it < max_iter and mnorm > thresh and not stalled:
+            it += 16
+            at_check = bool(stall_window) and it % stall_window == 0
+            o = kernels.gd_multi(p, q, v, tg, live, taps, 0.05, 0.2, 0.95, 1, 16,
+                                 with_energy=at_check)
+            p, q, v = o.psi, o.tnp, o.vel
+            rows.append(o.mx_sq.cpu().numpy())
+            mnorm = float(np.sqrt(rows[-1][-1]))
+            if at_check:
+                stalled, e_ref = solver.stall_check(float(o.e_data[-1]), e_ref, it,
+                                                    stall_window, stall_rel)
+        return (p, q, v), (it, mnorm, stalled), np.concatenate(rows)
+
+    _, _, rows = per_chunk(48, -1.0, 0, 0.0)
+    thresh = float(np.float32(np.sqrt(rows[47])))  # stops by the third chunk's end
+    for label, (max_iter, th, sw, rel) in (("norm stop", (1024, thresh, 0, 0.0)),
+                                            ("cap 40", (40, -1.0, 0, 0.0)),
+                                            ("stall", (1024, -1.0, 16, 1.0))):
+        want_state, want, _ = per_chunk(max_iter, th, sw, rel)
+        kernels.reset_launch_counts()
+        loop = kernels.GdMultiLoop(psi, tnp, tg, live, taps, 0.05, 0.2, 0.95, 1, th, max_iter,
+                                   16, sw, rel)
+        while loop.running:
+            loop.run(min(kernels.GD_MULTI_LAUNCHES, -(-(max_iter - loop.count) // 16)))
+        got = (loop.count, loop.mnorm, loop.stalled)
+        same = got == want and all(bitwise(a, b) for a, b in zip(loop.state(), want_state))
+        counts = (kernels.launch_counts["gd_multi"], kernels.empty_launches["gd_multi"],
+                  kernels.host_reads["gd_multi"])
+        log("kernels", f"gd_multi loop, {label}: iterations {got[0]}, last norm {got[1]:.6e}, "
+            f"stalled {got[2]}; launches that ran / empty / host reads {counts}; bit for bit "
+            f"with one launch a chunk {same}")
+        check(same, f"GdMultiLoop differs from one launch a chunk ({label})")
+        check(counts[0] == got[0] // 16 and counts[2] == -(-counts[0] // kernels.GD_MULTI_LAUNCHES),
+              f"GdMultiLoop's launch and host-read counts ({label})")
+        if label == "cap 40":
+            check(got[0] == 48, "GdMultiLoop: a cap of 40 runs 48 iterations")
+        if label == "stall":
+            check(got[2], "GdMultiLoop: the stall did not stop the loop")
+    kernels.reset_launch_counts()
 
 
 def check_goldens(torch, fields, solver):
@@ -826,6 +927,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
     max_reads = 0
     for i, depth in enumerate(frames):
         reads0 = sum(kernels.host_reads.values())
+        e_reads0 = kernels.host_reads["gd_multi"]
         with StageClock((solver, "estimate_psi")) as clock:
             t0 = time.perf_counter()
             fusion(depth)
@@ -850,11 +952,17 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
         log(
             phase,
             f"frame {i}: {dt:.4f} s, iters {res.iters} (coarse {res.coarse_iters}, "
-            f"fine {fine}), {sum(kernels.host_reads.values()) - reads0} host reads of kernel "
-            f"A's loops, fine level stopped on {why}, final max-norm "
+            f"fine {fine}), {sum(kernels.host_reads.values()) - reads0} host reads of the solve "
+            f"loops ({kernels.host_reads['gd_multi'] - e_reads0} of them kernel E's), fine level "
+            f"stopped on {why}, final max-norm "
             f"{res.max_norm:.6e}; {levels} (the coarsest first, the fine level last)",
         )
         max_reads = max(max_reads, sum(kernels.host_reads.values()) - reads0)
+        # kernel E's loop: one read per GD_MULTI_LAUNCHES chunks of 16 on each coarse level
+        e_cap = -(-params.max_iter // (16 * kernels.GD_MULTI_LAUNCHES))
+        check(kernels.host_reads["gd_multi"] - e_reads0 <= max(0, params.pyramid_levels - 1) * e_cap,
+              f"{phase}: kernel E's loop read the host more than once per "
+              f"{kernels.GD_MULTI_LAUNCHES} chunks")
         if after is not None:
             after(i, fusion)
     counts = dict(kernels.launch_counts)
@@ -863,7 +971,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
         fusion.phi_global.voxel_sizes(), pose=fusion.phi_global.pose,
     )
     torch.cuda.synchronize()
-    log(phase, f"launch counts {counts}; kernel A's loops: host reads "
+    log(phase, f"launch counts {counts}; the solve loops: host reads "
         f"{dict(kernels.host_reads)}, launches after the stop {dict(kernels.empty_launches)}; "
         f"phi_global mesh {mesh.n_triangles} triangles")
     # one read per chunk of GD_CHUNK iterations (and per stall check), not per iteration

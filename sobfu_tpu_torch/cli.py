@@ -8,7 +8,8 @@ src/apps/demo.cpp:526-568). <data dir> holds depth/, color/ and optionally
 omask/. --enable-log writes per-frame meshes to <dir>/meshes (.vtk) and
 the deformation field to <dir>/fields (.vti). The visualisation,
 checkpoint and colour-mesh flags of the JAX CLI are not ported yet and exit
-with an error.
+with an error; --live-viz-port and --live-viz-host are accepted and inert
+without --live-viz, and --no-native-loader names what the port always does.
 """
 
 from __future__ import annotations
@@ -46,9 +47,18 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--enable-viz", action="store_true", help="not ported yet")
     ap.add_argument("--enable-viz-detailed", action="store_true", help="not ported yet")
     ap.add_argument("--live-viz", action="store_true", help="not ported yet")
+    ap.add_argument("--live-viz-port", type=int, default=8765,
+                    help="port of the live viewer (inert: --live-viz is not ported yet)")
+    ap.add_argument("--live-viz-host", default="127.0.0.1",
+                    help="interface of the live viewer (inert: --live-viz is not ported yet)")
     ap.add_argument("--checkpoint", default=None, help="not ported yet")
     ap.add_argument("--resume", default=None, help="not ported yet")
     ap.add_argument("--color-mesh", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--no-native-loader", action="store_true",
+        help="decode frames on the Python thread; the port has no native loader, so this is "
+        "what it always does",
+    )
     return ap
 
 

@@ -46,9 +46,9 @@
 //     loops unroll); voxel arithmetic is 32-bit inside a channel, 64 bits
 //     only for the scene and channel bases; any (Z, Y, X) is taken, tiles
 //     over the grid's edge are masked.
-//   - The arithmetic is csrc/gd_step.cuh's, shared with kernel E's
-//     global-memory bodies, in the same order: psi', tnp', vel' and the norm
-//     equal E's chained result bit for bit.
+//   - The march is csrc/gd_step.cuh's gd_march, which kernel E runs for
+//     every iteration of its launch: psi', tnp', vel' and the norm equal
+//     E's chained result bit for bit.
 // Measured on an H100 80GB HBM3 at 700 W, device time per iteration at
 // 128^3, 7 taps, K=2 (torch.profiler): the two launches this replaces 0.155
 // ms (0.158 with momentum); this kernel 0.114 ms (0.122) with LZ = 16: 512
@@ -106,8 +106,6 @@
 
 namespace sobfu {
 
-constexpr int kTileX = 32, kTileY = 8;  // kTileX * kTileY == kBlock: a voxel a thread per plane
-
 struct GdArgs {
   float* psi[2];  // the ping-pong pair: iteration c reads [c & 1]
   float* tnp[2];
@@ -119,9 +117,8 @@ struct GdArgs {
   int* ctl_out;                  // [S] row k + 1
   const unsigned int* prev_max;  // [S] launch k - 1's max bits; null for k = 0
   unsigned int* max_bits;        // [S] this launch's
-  float alpha, w_reg, momentum, thresh, hi;
-  int Z, Y, X, K;
-  int LZ, tiles_x, tiles_y;
+  float thresh;
+  MarchShape m;
   int copy_frozen;  // a frozen scene's blocks copy its state to the other buffer
 };
 
@@ -141,174 +138,50 @@ __device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) 
 
 template <int NT, bool kScenes>
 __global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
-  constexpr int r = NT / 2;
-  constexpr int kSlots = NT + 1;
-  constexpr int HX = kTileX + 2 * r, HY = kTileY + 2 * r;
-  constexpr int kPlane = HY * HX;       // floats of one channel of one slot
-  constexpr int kChan = kSlots * kPlane;  // floats of one channel
-  constexpr int kRows = 2 * r * kTileX;   // halo positions above and below the tile
-  constexpr int kHalo = kRows + 2 * r * kTileY;  // ... and beside it
-  constexpr int NH = (kHalo + kBlock - 1) / kBlock;  // a thread's share of the halo
-  constexpr int kSide = r > 0 ? 2 * r : 1;
-  extern __shared__ float ring[];  // [3][kSlots][HY][HX]
+  extern __shared__ float ring[];  // [3][NT + 1][kTileY + 2r][kTileX + 2r]
 
   const int s = kScenes ? (int)blockIdx.y : 0;
   int count;
   const bool on = gd_scene_on(a, s, &count);  // uniform over the block
   if (!on && !a.copy_frozen) return;
 
-  const int Z = a.Z, Y = a.Y, X = a.X;
-  const int XY = X * Y;
-  const unsigned N = (unsigned)Z * XY;
-  const ptrdiff_t sX = X, sXY = XY, sN = N;  // strides as pointer offsets
+  const MarchShape& m = a.m;
+  const unsigned N = (unsigned)m.Z * m.Y * m.X;
   const size_t fo = (size_t)3 * N * s, vo = (size_t)N * s;  // field and volume offsets
   const int par = count & 1;
-  const float* __restrict__ psi = a.psi[par] + fo;
-  const float* __restrict__ tnp = a.tnp[par] + vo;
-  const float* __restrict__ vel = a.vel[par] != nullptr ? a.vel[par] + fo : nullptr;
-  float* __restrict__ psi_out = a.psi[par ^ 1] + fo;
-  float* __restrict__ tnp_out = a.tnp[par ^ 1] + vo;
-  float* __restrict__ vel_out = vel != nullptr ? a.vel[par ^ 1] + fo : nullptr;
-  const float* __restrict__ tg = a.tg + vo;
-  const float* __restrict__ live = a.live + vo;
+  MarchIO io;
+  io.psi = a.psi[par] + fo;
+  io.tnp = a.tnp[par] + vo;
+  io.vel = a.vel[par] != nullptr ? a.vel[par] + fo : nullptr;
+  io.tg = a.tg + vo;
+  io.live = a.live + vo;
+  io.psi_out = a.psi[par ^ 1] + fo;
+  io.tnp_out = a.tnp[par ^ 1] + vo;
+  io.vel_out = io.vel != nullptr ? a.vel[par ^ 1] + fo : nullptr;
 
-  int b = blockIdx.x;
-  const int gx0 = (b % a.tiles_x) * kTileX;
-  b /= a.tiles_x;
-  const int gy0 = (b % a.tiles_y) * kTileY;
-  const int z0 = (b / a.tiles_y) * a.LZ;
-  const int z1 = min(z0 + a.LZ, Z);
-
-  // the thread's voxel of every plane, and whether the grid has it
-  const int tid = threadIdx.x;
-  const int ly = tid >> 5, lx = tid & 31;
-  const bool mine = gy0 + ly < Y && gx0 + lx < X;
-  const int vox = (gy0 + ly) * X + gx0 + lx;
-
+  const Segment g = segment(blockIdx.x, m);
   if (!on) {  // the one-call form: the block's voxels pass through
-    for (int z = z0; z < z1 && mine; ++z) {
-      const float* p = psi + (z * XY + vox);
-      float* q = psi_out + (z * XY + vox);
-      for (int c = 0; c < 3; ++c) q[c * sN] = p[c * sN];
-      if (vel != nullptr)
-        for (int c = 0; c < 3; ++c) vel_out[c * sN + z * XY + vox] = vel[c * sN + z * XY + vox];
-      tnp_out[z * XY + vox] = tnp[z * XY + vox];
+    const int ly = threadIdx.x >> 5, lx = threadIdx.x & 31;
+    if (g.gy0 + ly >= m.Y || g.gx0 + lx >= m.X) return;
+    for (unsigned i = (g.z0 * m.Y + g.gy0 + ly) * m.X + g.gx0 + lx;
+         i < (unsigned)(g.z1 * m.Y * m.X); i += m.Y * m.X) {
+      for (int c = 0; c < 3; ++c) io.psi_out[(size_t)c * N + i] = io.psi[(size_t)c * N + i];
+      if (io.vel != nullptr)
+        for (int c = 0; c < 3; ++c) io.vel_out[(size_t)c * N + i] = io.vel[(size_t)c * N + i];
+      io.tnp_out[i] = io.tnp[i];
     }
     return;
-  }
-
-  // The positions of a plane whose dU this thread computes: [0] its own
-  // voxel, [1..NH] its share of the cross-shaped halo (filled on the
-  // segment's own planes only). Each is clamped into the grid once, here:
-  // off is y * X + x of the clamped voxel, dst its place in a slot.
-  int off[1 + NH], dst[1 + NH];
-  bool has[1 + NH], in_x[1 + NH], in_y[1 + NH];
-#pragma unroll
-  for (int k = 0; k <= NH; ++k) {
-    int py = ly + r, px = lx + r;
-    has[k] = true;
-    if (k > 0) {
-      const int h = tid + (k - 1) * kBlock;
-      has[k] = h < kHalo;
-      if (h < kRows) {  // rows 0 .. r-1 and kTileY+r .. kTileY+2r-1, the tile's columns
-        const int j = h >> 5;
-        py = j < r ? j : kTileY + j;
-        px = r + (h & 31);
-      } else {  // 2r columns beside each of the tile's rows
-        const int e = h - kRows, col = e % kSide;
-        py = r + e / kSide;
-        px = col < r ? col : kTileX + col;
-      }
-    }
-    const int yc = min(max(gy0 + py - r, 0), Y - 1);
-    const int xc = min(max(gx0 + px - r, 0), X - 1);
-    off[k] = yc * X + xc;
-    dst[k] = py * HX + px;
-    in_x[k] = xc > 0 && xc < X - 1;
-    in_y[k] = yc > 0 && yc < Y - 1;
   }
 
   float w[NT];
 #pragma unroll
   for (int u = 0; u < NT; ++u) w[u] = __ldg(a.taps + u);
-
-  float n2_max = 0.0f;
-  for (int p = z0 - r; p <= z1 + r; ++p) {
-    // the voxel finished this step: its planes zo - r .. zo + r were filled before
-    const int zo = p - r - 1;
-    const bool finish = zo >= z0 && mine;
-    const int i = zo * XY + vox;
-    // its psi and velocity are asked for before the fill, whose loads hide theirs
-    float psi_c[3], vel_c[3] = {0.0f, 0.0f, 0.0f};
-    if (finish) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        psi_c[c] = __ldg(psi + (c * sN + i));
-        if (vel != nullptr) vel_c[c] = __ldg(vel + (c * sN + i));
-      }
-    }
-    if (p < z1 + r) {
-      // dU of plane p (clamped into the grid) into its slot
-      float* slot = ring + ((p - (z0 - r)) % kSlots) * kPlane;
-      const bool cross = p >= z0 && p < z1;  // an output plane: the x and y halos too
-      const int zc = min(max(p, 0), Z - 1);
-      const bool in_z = zc > 0 && zc < Z - 1;
-#pragma unroll
-      for (int k = 0; k <= NH; ++k) {
-        if (k > 0 && !(cross && has[k])) continue;
-        const int i = zc * XY + off[k];
-        const float* pt = tnp + i;
-        const float* pp = psi + i;
-        float d[3];
-        gd_potential(
-            in_x[k], in_y[k], in_z, __ldg(tg + i), a.w_reg,
-            [&](int dx, int dy, int dz) { return __ldg(pt + (dx + dy * sX + dz * sXY)); },
-            [&](int c, int dx, int dy, int dz) {
-              return __ldg(pp + (c * sN + dx + dy * sX + dz * sXY));
-            },
-            d);
-        float* q = slot + dst[k];
-        q[0] = d[0];
-        q[kChan] = d[1];
-        q[2 * kChan] = d[2];
-      }
-    }
-    if (finish) {
-      const int sb = (zo - z0 + 2 * r) % kSlots;  // slot of plane zo + r; plane zo + r - u: sb - u
-      const float* f0 = ring + ((zo - z0 + r) % kSlots) * kPlane + dst[0];  // plane zo, channel 0
-      const float* fz = ring + dst[0];                                       // slot 0, channel 0
-      float p_new[3], upd[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float dus = sobolev_sum(
-            NT, [&](int u) { return w[u]; }, [&](int u) { return f0[c * kChan + (r - u)]; },
-            [&](int u) { return f0[c * kChan + (r - u) * HX]; },
-            [&](int u) {
-              const int su = sb - u;
-              return fz[c * kChan + (su < 0 ? su + kSlots : su) * kPlane];
-            });
-        const ptrdiff_t ci = c * sN + i;
-        float step;
-        upd[c] = gd_step_channel(dus, vel != nullptr, vel_c[c], psi_c[c], a.alpha, a.momentum,
-                                 &step, &p_new[c]);
-        if (vel != nullptr) vel_out[ci] = step;
-        psi_out[ci] = p_new[c];
-      }
-      n2_max = nan_max(norm_sq(upd), n2_max);
-      const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], gx0 + lx, gy0 + ly, zo, Z, Y, X, a.K,
-                            a.hi);
-      tnp_out[i] = trilinear(t, a.K < 0, [&](int xi, int yi, int zi) {
-        return __ldg(live + (zi * XY + yi * X + xi));
-      });
-    }
-    __syncthreads();
-  }
-  block_max_atomic(n2_max, a.max_bits + s);
+  block_max_atomic(gd_march<NT, true>(io, w, ring, g, m), a.max_bits + s);
 }
 
 // The tile partials of 0.5 * sum (tg - tnp')^2 after the call's last launch:
 // sum over tile blockIdx.x of 256 consecutive voxels in block_sum's order —
-// the partial kernel E's update body writes for the same tile. ctl is row n:
+// the partial kernel E forms for the same tile (gd_multi.cu). ctl is row n:
 // a scene that ran the last launch has c >= 0 and its tnp' in buffer c & 1;
 // a frozen scene's partials are 0.
 template <bool kScenes>
@@ -358,8 +231,7 @@ int gd_iterations_launch(GdCall c) {
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(c.max_sq, 0, sizeof(float) * c.n * c.S, c.stream);
   if (err != cudaSuccess) return (int)err;
-  const int segs = (a.Z + a.LZ - 1) / a.LZ;
-  const dim3 grid(a.tiles_x * a.tiles_y * segs, c.S);
+  const dim3 grid(a.m.tiles_x * a.m.tiles_y * a.m.segs, c.S);
   unsigned int* rows = reinterpret_cast<unsigned int*>(c.max_sq);
   for (int k = 0; k < c.n; ++k) {
     a.ctl_in = c.ctl + (size_t)k * c.S;
@@ -371,7 +243,7 @@ int gd_iterations_launch(GdCall c) {
     if (err != cudaSuccess) return (int)err;
   }
   if (c.e_partials == nullptr) return 0;
-  const unsigned N = (unsigned)a.Z * a.Y * a.X;
+  const unsigned N = (unsigned)a.m.Z * a.m.Y * a.m.X;
   const int n_tiles = blocks_for(N);
   energy_partials_kernel<kScenes><<<dim3(n_tiles, c.S), kBlock, 0, c.stream>>>(
       a.tnp[0], a.tnp[1], a.tg, c.ctl + (size_t)c.n * c.S, c.e_partials, N);
@@ -419,13 +291,9 @@ extern "C" int sobfu_gd_iterations(float* psi0, float* psi1, float* tnp0, float*
   a.tnp[0] = tnp0, a.tnp[1] = tnp1;
   a.vel[0] = vel0, a.vel[1] = vel1;
   a.tg = tg, a.live = live, a.taps = taps;
-  a.alpha = alpha, a.w_reg = w_reg, a.momentum = momentum, a.thresh = thresh;
-  a.hi = (float)((double)K - 1e-4);
-  a.Z = Z, a.Y = Y, a.X = X, a.K = K;
-  a.LZ = LZ;
+  a.thresh = thresh;
+  a.m = march_shape(Z, Y, X, K, LZ, alpha, w_reg, momentum);
   a.copy_frozen = copy_frozen;
-  a.tiles_x = (X + kTileX - 1) / kTileX;
-  a.tiles_y = (Y + kTileY - 1) / kTileY;
   c.ctl = ctl, c.max_sq = max_sq, c.e_partials = e_partials, c.e_data = e_data;
   c.n = n, c.S = S;
   c.stream = (cudaStream_t)stream;

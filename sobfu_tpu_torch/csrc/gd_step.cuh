@@ -1,28 +1,22 @@
 // The arithmetic of one Sobolev gradient-descent iteration, written once over
-// value getters, and the two global-memory bodies built from it.
+// value getters, and the z-march that both iteration kernels run.
 //
 // The arithmetic (gd_potential, sobolev_sum, gd_step_channel, norm_sq) takes
 // its operands through getters, so the same instructions in the same order
-// serve every kernel whatever memory the operands come from:
-//   - kernel A (csrc/gd_iteration.cu) computes dU into shared memory and
-//     convolves it from there, one launch per iteration;
+// serve every kernel whatever memory the operands come from. gd_march is
+// one block's iteration over one z segment of one (y, x) tile: dU in a ring
+// of shared-memory planes (csrc/gd_iteration.cu's header describes it).
+//   - kernel A (csrc/gd_iteration.cu) runs it once per block and launch;
 //   - kernel E (csrc/gd_multi.cu, n iterations in one cooperative launch)
-//     runs the two global-memory bodies below (gd_potential_voxel writes dU
-//     to a scratch field, gd_update_tile gathers it back) between grid syncs.
+//     runs it for each segment a block owns, once per iteration, with one
+//     grid sync between iterations.
 // Built with --fmad=false, both therefore land on the same bits: E equals
 // chained A launches bit for bit.
 //
-// The bodies cut the work into tiles of kBlock consecutive voxels, thread t
-// of a block taking voxel tile * kBlock + t; E walks the tiles with a
-// grid-stride loop. Every per-iteration reduction is formed per tile in a
-// fixed order (sampling.cuh block_sum / block_max_atomic) and the tile
-// partials are summed by one block in a fixed order (sum_partials), so the
-// result does not depend on how tiles map to blocks. A's energy pass
-// (gd_iteration.cu energy_partials_kernel) forms the same tile partials.
-//
-// Kernel E writes psi, tnp, vel and dU between grid syncs, so only the
-// loop-invariant live volume and taps are read through the read-only path
-// (__ldg) there; everything else is a plain load.
+// Every per-iteration reduction is formed per tile in a fixed order
+// (sampling.cuh block_sum / block_max_atomic) and the tile partials are
+// summed by one block in a fixed order (sum_partials); the energies' tiles
+// are 256 consecutive voxels, whatever tiles the march uses.
 #pragma once
 
 #include "sampling.cuh"
@@ -86,25 +80,6 @@ __device__ __forceinline__ float norm_sq(const float* upd) {
   return (upd[0] * upd[0] + upd[1] * upd[1]) + upd[2] * upd[2];
 }
 
-// gd_potential at voxel i < N from global memory, written to dU.
-__device__ __forceinline__ void gd_potential_voxel(long long i, const float* psi,
-                                                   const float* tnp, const float* tg,
-                                                   float w_reg, float* dU, int Z, int Y,
-                                                   int X) {
-  const long long N = (long long)Z * Y * X;
-  const int x = (int)(i % X);
-  const int y = (int)((i / X) % Y);
-  const int z = (int)(i / ((long long)X * Y));
-  const long long sy = X, sz = (long long)X * Y;
-  float d[3];
-  gd_potential(
-      x > 0 && x < X - 1, y > 0 && y < Y - 1, z > 0 && z < Z - 1, tg[i], w_reg,
-      [&](int dx, int dy, int dz) { return tnp[i + dx + dy * sy + dz * sz]; },
-      [&](int c, int dx, int dy, int dz) { return psi[c * N + i + dx + dy * sy + dz * sz]; },
-      d);
-  for (int c = 0; c < 3; ++c) dU[c * N + i] = d[c];
-}
-
 // The summands of the verbose energies at voxel i < N, before the update:
 // (tg - tnp)^2 and ||J||_F^2 with J the central-difference Jacobian of the
 // displacement psi - identity (0 on boundary slices; fields.jacobian).
@@ -132,57 +107,229 @@ __device__ __forceinline__ void verbose_voxel(long long i, const float* psi, con
   *j_sq = acc;
 }
 
-// The update of tile `tile`: the three axis convolutions of dU, the
-// (momentum) step, psi' and tnp' = trilinear(live, psi'), and the tile's
-// reductions: max ||update||^2 into *max_bits (atomicMax on the bits) and,
-// when e_partials is set, sum (tg - tnp')^2 into e_partials[tile].
-// Every thread of the block must call it.
-__device__ __forceinline__ void gd_update_tile(
-    long long tile, const float* psi, const float* vel, const float* live, const float* dU,
-    const float* taps, int n_taps, float alpha, float momentum, float* psi_out,
-    float* tnp_out, float* vel_out, const float* tg, unsigned int* max_bits,
-    float* e_partials, int Z, int Y, int X, int K, float hi) {
-  const long long N = (long long)Z * Y * X;
-  const long long i = tile * kBlock + threadIdx.x;
-  float n2 = 0.0f, e2 = 0.0f;
-  if (i < N) {
-    const int x = (int)(i % X);
-    const int y = (int)((i / X) % Y);
-    const int z = (int)(i / ((long long)X * Y));
-    const int r = n_taps / 2;
-    const long long row = i - x;                     // (z, y, 0)
-    const long long col = (long long)z * Y * X + x;  // (z, 0, x)
-    const long long pil = (long long)y * X + x;      // (0, y, x)
-    float p_new[3], upd[3];
-    for (int c = 0; c < 3; ++c) {
-      const float* f = dU + c * N;
-      const float dus = sobolev_sum(
-          n_taps, [&](int u) { return __ldg(taps + u); },
-          [&](int u) { return f[row + min(max(x + r - u, 0), X - 1)]; },
-          [&](int u) { return f[col + (long long)min(max(y + r - u, 0), Y - 1) * X]; },
-          [&](int u) { return f[pil + (long long)min(max(z + r - u, 0), Z - 1) * Y * X]; });
-      float step;
-      upd[c] = gd_step_channel(dus, vel != nullptr, vel != nullptr ? vel[c * N + i] : 0.0f,
-                               psi[c * N + i], alpha, momentum, &step, &p_new[c]);
-      if (vel != nullptr) vel_out[c * N + i] = step;
-      psi_out[c * N + i] = p_new[c];
+constexpr int kTileX = 32, kTileY = 8;  // kTileX * kTileY == kBlock: a voxel a thread per plane
+
+// What a march reads and writes. vel and vel_out are null without momentum.
+struct MarchIO {
+  const float* psi;
+  const float* tnp;
+  const float* vel;
+  const float* tg;
+  const float* live;
+  float* psi_out;
+  float* tnp_out;
+  float* vel_out;
+};
+
+// The grid, its tiling and the step's scalars.
+struct MarchShape {
+  int Z, Y, X, K;  // K < 0: exact warp
+  int LZ, tiles_x, tiles_y, segs;
+  float hi, alpha, w_reg, momentum;
+};
+
+inline MarchShape march_shape(int Z, int Y, int X, int K, int LZ, float alpha, float w_reg,
+                              float momentum) {
+  MarchShape m;
+  m.Z = Z, m.Y = Y, m.X = X, m.K = K;
+  m.LZ = LZ;
+  m.tiles_x = (X + kTileX - 1) / kTileX;
+  m.tiles_y = (Y + kTileY - 1) / kTileY;
+  m.segs = (Z + LZ - 1) / LZ;
+  m.hi = (float)((double)K - 1e-4);
+  m.alpha = alpha, m.w_reg = w_reg, m.momentum = momentum;
+  return m;
+}
+
+// The (y, x) tile and the z segment [z0, z1) of segment index b.
+struct Segment {
+  int gx0, gy0, z0, z1;
+};
+
+// kCube: the grid is kCube^3, known at compile time (0: m's extents).
+template <int kCube = 0>
+__device__ __forceinline__ Segment segment(int b, const MarchShape& m) {
+  const int tiles_x = kCube ? (kCube + kTileX - 1) / kTileX : m.tiles_x;
+  const int tiles_y = kCube ? (kCube + kTileY - 1) / kTileY : m.tiles_y;
+  Segment g;
+  g.gx0 = (b % tiles_x) * kTileX;
+  b /= tiles_x;
+  g.gy0 = (b % tiles_y) * kTileY;
+  g.z0 = (b / tiles_y) * m.LZ;
+  g.z1 = min(g.z0 + m.LZ, kCube ? kCube : m.Z);
+  return g;
+}
+
+// kRO: psi, tnp and vel stay unwritten for the whole launch (kernel A), so
+// they are read through the read-only path from restrict pointers; kernel E
+// writes them between grid syncs and reads them with plain loads from plain
+// pointers, which the compiler never turns into read-only loads.
+template <bool kRO>
+struct StatePtr {
+  typedef const float* type;
+};
+template <>
+struct StatePtr<true> {
+  typedef const float* __restrict__ type;
+};
+
+template <bool kRO>
+__device__ __forceinline__ float ld_state(const float* p) {
+  if (kRO) return __ldg(p);
+  return *p;
+}
+
+// One iteration of segment b by the whole block (every thread must call
+// it): dU of the segment's planes into the ring (NT + 1 slots of three
+// channels, each the tile plus a halo of r = NT / 2 on its four sides),
+// then each finished plane's smoothing, step, psi', the live gather and
+// tnp'. Returns the thread's max squared update norm. It ends on a
+// __syncthreads(), so the ring may be refilled at once. kCube != 0: the grid
+// is kCube^3 and every stride is a constant, so the fill's 29 loads a
+// position are immediate offsets from two pointers. kLZ != 0: every
+// segment has kLZ planes (the caller's LZ divides Z), so the march's
+// kLZ + 2r + 1 plane steps unroll and each step's fill, cross halo and
+// finish are known at compile time.
+template <int NT, bool kRO, int kCube = 0, int kLZ = 0>
+__device__ __forceinline__ float gd_march(const MarchIO& io, const float (&w)[NT], float* ring,
+                                          const Segment g, const MarchShape& m) {
+  constexpr int r = NT / 2;
+  constexpr int kSlots = NT + 1;
+  constexpr int HX = kTileX + 2 * r, HY = kTileY + 2 * r;
+  constexpr int kPlane = HY * HX;       // floats of one channel of one slot
+  constexpr int kChan = kSlots * kPlane;  // floats of one channel
+  constexpr int kRows = 2 * r * kTileX;   // halo positions above and below the tile
+  constexpr int kHalo = kRows + 2 * r * kTileY;  // ... and beside it
+  constexpr int NH = (kHalo + kBlock - 1) / kBlock;  // a thread's share of the halo
+  constexpr int kSide = r > 0 ? 2 * r : 1;
+
+  const int Z = kCube ? kCube : m.Z, Y = kCube ? kCube : m.Y, X = kCube ? kCube : m.X;
+  const int XY = X * Y;
+  const unsigned N = (unsigned)Z * XY;
+  const ptrdiff_t sX = X, sXY = XY, sN = N;  // strides as pointer offsets
+  typename StatePtr<kRO>::type psi = io.psi;
+  typename StatePtr<kRO>::type tnp = io.tnp;
+  typename StatePtr<kRO>::type vel = io.vel;
+  const float* __restrict__ tg = io.tg;
+  const float* __restrict__ live = io.live;
+  float* __restrict__ psi_out = io.psi_out;
+  float* __restrict__ tnp_out = io.tnp_out;
+  float* __restrict__ vel_out = io.vel_out;
+  const int gx0 = g.gx0, gy0 = g.gy0, z0 = g.z0, z1 = g.z1;
+
+  // the thread's voxel of every plane, and whether the grid has it
+  const int tid = threadIdx.x;
+  const int ly = tid >> 5, lx = tid & 31;
+  const bool mine = gy0 + ly < Y && gx0 + lx < X;
+  const int vox = (gy0 + ly) * X + gx0 + lx;
+
+  // The positions of a plane whose dU this thread computes: [0] its own
+  // voxel, [1..NH] its share of the cross-shaped halo (filled on the
+  // segment's own planes only). Each is clamped into the grid once, here:
+  // off is y * X + x of the clamped voxel, dst its place in a slot.
+  int off[1 + NH], dst[1 + NH];
+  bool has[1 + NH], in_x[1 + NH], in_y[1 + NH];
+#pragma unroll
+  for (int k = 0; k <= NH; ++k) {
+    int py = ly + r, px = lx + r;
+    has[k] = true;
+    if (k > 0) {
+      const int h = tid + (k - 1) * kBlock;
+      has[k] = h < kHalo;
+      if (h < kRows) {  // rows 0 .. r-1 and kTileY+r .. kTileY+2r-1, the tile's columns
+        const int j = h >> 5;
+        py = j < r ? j : kTileY + j;
+        px = r + (h & 31);
+      } else {  // 2r columns beside each of the tile's rows
+        const int e = h - kRows, col = e % kSide;
+        py = r + e / kSide;
+        px = col < r ? col : kTileX + col;
+      }
     }
-    n2 = norm_sq(upd);
-    const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], x, y, z, Z, Y, X, K, hi);
-    const float t_new = trilinear(t, K < 0, [&](int xi, int yi, int zi) {
-      return __ldg(live + flat_index(xi, yi, zi, Y, X));
-    });
-    tnp_out[i] = t_new;
-    if (e_partials != nullptr) {
-      const float d = tg[i] - t_new;
-      e2 = d * d;
+    const int yc = min(max(gy0 + py - r, 0), Y - 1);
+    const int xc = min(max(gx0 + px - r, 0), X - 1);
+    off[k] = yc * X + xc;
+    dst[k] = py * HX + px;
+    in_x[k] = xc > 0 && xc < X - 1;
+    in_y[k] = yc > 0 && yc < Y - 1;
+  }
+
+  float n2_max = 0.0f;
+  // kLZ != 0: every segment has kLZ planes (the launch's LZ divides the grid)
+  const int nz = kLZ ? kLZ : z1 - z0;
+#pragma unroll (kLZ ? kLZ + 2 * r + 1 : 1)
+  for (int q = 0; q <= nz + 2 * r; ++q) {
+    const int p = z0 - r + q;
+    // the voxel finished this step: its planes zo - r .. zo + r were filled before
+    const int zo = p - r - 1;
+    const bool finish = q >= 2 * r + 1 && mine;
+    const int i = zo * XY + vox;
+    // its psi and velocity are asked for before the fill, whose loads hide theirs
+    float psi_c[3], vel_c[3] = {0.0f, 0.0f, 0.0f};
+    if (finish) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        psi_c[c] = ld_state<kRO>(psi + (c * sN + i));
+        if (vel != nullptr) vel_c[c] = ld_state<kRO>(vel + (c * sN + i));
+      }
     }
+    if (q < nz + 2 * r) {
+      // dU of plane p (clamped into the grid) into its slot
+      float* slot = ring + (q % kSlots) * kPlane;
+      const bool cross = q >= r && q < r + nz;  // an output plane: the x and y halos too
+      const int zc = min(max(p, 0), Z - 1);
+      const bool in_z = zc > 0 && zc < Z - 1;
+#pragma unroll
+      for (int k = 0; k <= NH; ++k) {
+        if (k > 0 && !(cross && has[k])) continue;
+        const int i = zc * XY + off[k];
+        const float* pt = tnp + i;
+        const float* pp = psi + i;
+        float d[3];
+        gd_potential(
+            in_x[k], in_y[k], in_z, __ldg(tg + i), m.w_reg,
+            [&](int dx, int dy, int dz) { return ld_state<kRO>(pt + (dx + dy * sX + dz * sXY)); },
+            [&](int c, int dx, int dy, int dz) {
+              return ld_state<kRO>(pp + (c * sN + dx + dy * sX + dz * sXY));
+            },
+            d);
+        float* q = slot + dst[k];
+        q[0] = d[0];
+        q[kChan] = d[1];
+        q[2 * kChan] = d[2];
+      }
+    }
+    if (finish) {
+      const int sb = (q - 1) % kSlots;  // slot of plane zo + r; plane zo + r - u: sb - u
+      const float* f0 = ring + ((q - r - 1) % kSlots) * kPlane + dst[0];  // plane zo, channel 0
+      const float* fz = ring + dst[0];                                       // slot 0, channel 0
+      float p_new[3], upd[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float dus = sobolev_sum(
+            NT, [&](int u) { return w[u]; }, [&](int u) { return f0[c * kChan + (r - u)]; },
+            [&](int u) { return f0[c * kChan + (r - u) * HX]; },
+            [&](int u) {
+              const int su = sb - u;
+              return fz[c * kChan + (su < 0 ? su + kSlots : su) * kPlane];
+            });
+        const ptrdiff_t ci = c * sN + i;
+        float step;
+        upd[c] = gd_step_channel(dus, vel != nullptr, vel_c[c], psi_c[c], m.alpha, m.momentum,
+                                 &step, &p_new[c]);
+        if (vel != nullptr) vel_out[ci] = step;
+        psi_out[ci] = p_new[c];
+      }
+      n2_max = nan_max(norm_sq(upd), n2_max);
+      const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], gx0 + lx, gy0 + ly, zo, Z, Y, X, m.K,
+                            m.hi);
+      tnp_out[i] = trilinear(t, m.K < 0, [&](int xi, int yi, int zi) {
+        return __ldg(live + (zi * XY + yi * X + xi));
+      });
+    }
+    __syncthreads();
   }
-  block_max_atomic(n2, max_bits);
-  if (e_partials != nullptr) {
-    const float s = block_sum(e2);
-    if (threadIdx.x == 0) e_partials[tile] = s;
-  }
+  return n2_max;
 }
 
 }  // namespace sobfu

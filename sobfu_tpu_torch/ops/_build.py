@@ -46,9 +46,8 @@ SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "sobfu_gd_multi": (
-        _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _F,
+        _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "sobfu_compose_weight": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -28,7 +28,10 @@ kernel launches per wrapper and is touched nowhere else.
 The solve loops run kernel A through :class:`GdLoop`: up to ``GD_CHUNK``
 iterations per call, each a launch that tests the stop rule on the device,
 with one host read per call; its launches are counted as the iterations
-that ran (the device's counter), under the same two names.
+that ran (the device's counter), under the same two names. The coarse
+pyramid level runs kernel E through :class:`GdMultiLoop`: up to
+``GD_MULTI_LAUNCHES`` chunks of 16 iterations per call, one launch each,
+the stop rule tested on the device, one host read per call.
 """
 
 from __future__ import annotations
@@ -79,11 +82,11 @@ KERNELS = {
 TILE = 256
 
 
-# the solve loops: host reads of the device's stop state (one per chunk of
-# kernel A's GdLoop; the norm, and the energy at a stall check, per launch of
-# kernel E), and A's launches enqueued after every scene had stopped
+# the solve loops: host reads of the device's stop state (one per call of
+# kernel A's GdLoop and of kernel E's GdMultiLoop), and the launches
+# enqueued after the loop (or every scene) had stopped
 host_reads = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0}
-empty_launches = {"gd_iteration": 0, "gd_iteration_scenes": 0}
+empty_launches = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0}
 
 
 def reset_launch_counts() -> None:
@@ -256,12 +259,22 @@ def inverse_fixed_point_plain(psi, iters: int, K: Optional[int], init=None):
     return fields.estimate_inverse_window(psi, iters, K, init=init)
 
 
+# voxels a thread of kernel C takes, a block width apart (csrc/inverse.cu
+# kInversePer): voxel i of block b, thread t is b * TILE * INVERSE_PER + t
+# + j * TILE for j < INVERSE_PER
+INVERSE_PER = 2
+
+
 def inverse_fixed_point(psi, iters: int, K: Optional[int], init=None):
     """Kernel C: ``iters`` steps of q <- v - disp(psi)(q) from ``init``
     (None = identity) in one launch."""
     if _on_cpu(psi):
         return inverse_fixed_point_plain(psi, iters, K, init)
     Z, Y, X = psi.shape[1:]
+    if Z * Y * X >= 2 ** 31:
+        raise ValueError(f"inverse_fixed_point takes grids under 2^31 voxels, got {Z * Y * X}")
+    if int(iters) < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
     dev = psi.device
     out = torch.empty_like(psi)
     _launch(
@@ -355,21 +368,22 @@ SHARED_LIMIT = 232448
 GD_CHUNK = 16
 
 
-def gd_tile_plan(dims, n_taps: int, n_sm: int = 132) -> dict:
+def gd_tile_plan(dims, n_taps: int, n_sm: int = 132, min_lz: int = 4) -> dict:
     """Kernel A's tile plan for a grid (Z, Y, X): a block's (y, x) tile is
     TY x 32 = 8 x 32 voxels (csrc/gd_iteration.cu kTileY, kTileX: a voxel a
     thread per plane) and it marches a z segment of LZ planes, with a ring
     of n_taps + 1 dU planes (3 channels, the tile plus a halo of r = n_taps
     // 2 on its four sides) in shared memory. LZ, the one free choice, is
-    the longest segment that still gives every SM four blocks, at least 4
-    planes (a segment computes LZ + 2r planes of dU); the launch takes it.
-    Returns TY, LZ, halo, the tile counts, blocks and shared_bytes."""
+    the longest segment that still gives every SM four blocks, at least
+    min_lz planes (a segment computes LZ + 2r planes of dU); the launch
+    takes it. Returns TY, LZ, halo, the tile counts, blocks and
+    shared_bytes."""
     Z, Y, X = (int(d) for d in dims)
     r = int(n_taps) // 2
     TY = 8
     tiles_y, tiles_x = -(-Y // TY), -(-X // TILE_X)
     want = max(1, 4 * n_sm // (tiles_y * tiles_x))  # segments for 4 blocks an SM
-    LZ = max(min(4, Z), -(-Z // want))
+    LZ = max(min(min_lz, Z), -(-Z // want))
     segs = -(-Z // LZ)
     shared = 4 * 3 * (n_taps + 1) * (TY + 2 * r) * (TILE_X + 2 * r)
     if shared > SHARED_LIMIT:
@@ -712,6 +726,52 @@ def gd_multi_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
     )
 
 
+def _launch_gd_multi(ins, bufs, tg, live, taps, alpha, w_reg, momentum, K, plan, n_inner: int,
+                     n_launch: int, max_sq, ctl=None, thresh=0.0, max_iter=0, stall_window=0,
+                     stall_rel=0.0, e_data=None, energy_every=False, e_pre=None, e_reg=None,
+                     parts=None) -> None:
+    """Enqueue n_launch launches of kernel E (sobfu_gd_multi) on the
+    ping-pong buffers bufs = ((psi, tnp, vel), (psi, tnp, vel)); ins, if
+    set, is the (psi, tnp, vel) that iteration 0 reads (with ctl None: one
+    launch from count 0, no stop test). Nothing is counted here."""
+    from sobfu_tpu_torch.ops._build import library
+
+    (psi0, tnp0, vel0), (psi1, tnp1, vel1) = bufs
+    Z, Y, X = psi0.shape[1:]
+    dev = psi0.device
+    if Z * Y * X >= 2 ** 31:
+        raise ValueError(f"kernel E takes grids under 2^31 voxels, got {Z * Y * X}")
+    vol, fld = (Z, Y, X), (3, Z, Y, X)
+    s = _check_taps(taps, dev)
+    has_vel = momentum is not None
+    rows = (n_launch, n_inner)
+    if ctl is not None and (tuple(ctl.shape) != (n_launch + 1, 4) or ctl.dtype != torch.int32
+                            or not ctl.is_contiguous()):
+        raise ValueError(f"ctl: {ctl.dtype}{tuple(ctl.shape)}, expected int32 ({n_launch + 1}, 4)")
+    psi_in, tnp_in, vel_in = ins if ins is not None else (None, None, None)
+    with torch.cuda.device(dev):
+        rc = library().sobfu_gd_multi(
+            None if ins is None else _check("psi", psi_in, fld, dev),
+            None if ins is None else _check("tnp", tnp_in, vol, dev),
+            _check("vel", vel_in, fld, dev) if ins is not None and has_vel else None,
+            _check("psi", psi0, fld, dev), _check("psi", psi1, fld, dev),
+            _check("tnp", tnp0, vol, dev), _check("tnp", tnp1, vol, dev),
+            _check("vel", vel0, fld, dev) if has_vel else None,
+            _check("vel", vel1, fld, dev) if has_vel else None,
+            _check("tg", tg, vol, dev), _check("live", live, vol, dev), taps.data_ptr(), s,
+            float(alpha), float(w_reg), float(momentum) if has_vel else 0.0, float(thresh),
+            int(max_iter), int(stall_window), float(stall_rel),
+            None if ctl is None else ctl.data_ptr(), _check("max_sq", max_sq, rows, dev),
+            None if e_data is None else _check("e_data", e_data, rows, dev), int(energy_every),
+            _ptr(e_pre), _ptr(e_reg),
+            None if parts is None else _check("parts", parts, (4 * _n_tiles(vol),), dev),
+            n_inner, n_launch, Z, Y, X, _K(K), plan["LZ"],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gd_multi: CUDA launch failed with error {rc}")
+
+
 def gd_multi(
     psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
     momentum: Optional[float], K: Optional[int], n_inner: int,
@@ -722,7 +782,8 @@ def gd_multi(
     Operands as :func:`gd_iteration`. Equal bit for bit to n_inner chained
     gd_iteration calls: state, velocity, every mx_sq row and every e_data
     row. with_verbose adds the pre-update data and regulariser energies of
-    each iteration (the rows record_energy keeps).
+    each iteration (the rows record_energy keeps). The solve loops run E
+    through :class:`GdMultiLoop`.
     """
     n_inner = int(n_inner)
     if n_inner < 1:
@@ -730,41 +791,166 @@ def gd_multi(
     if _on_cpu(psi):
         return gd_multi_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
                               n_inner, with_energy, with_verbose)
-    Z, Y, X = psi.shape[1:]
-    dims = (Z, Y, X)
+    dims = tuple(psi.shape[1:])
     dev = psi.device
-    s = _check_taps(taps, dev)
     has_vel = momentum is not None
     f32 = dict(dtype=torch.float32, device=dev)
-    n_tiles = _n_tiles(dims)
+    out = (torch.empty_like(psi), torch.empty_like(tnp), torch.empty_like(psi) if has_vel else None)
+    tmp = (torch.empty_like(psi), torch.empty_like(tnp), torch.empty_like(psi) if has_vel else None)
+    # iteration c writes buffer (c + 1) & 1: the last one writes out
+    bufs = (out, tmp) if n_inner % 2 == 0 else (tmp, out)
+    mx_sq = torch.empty((1, n_inner), **f32)
+    e_data = torch.empty((1, n_inner), **f32) if with_energy else None
+    e_pre = torch.empty(n_inner, **f32) if with_verbose else None
+    e_reg = torch.empty(n_inner, **f32) if with_verbose else None
+    parts = torch.empty(4 * _n_tiles(dims), **f32) if with_energy or with_verbose else None
+    _launch_gd_multi((psi, tnp, vel), bufs, tg, live, taps, alpha, w_reg, momentum, K,
+                     gd_multi_plan(dims, taps.shape[0], _n_sm(dev)), n_inner, 1, mx_sq,
+                     e_data=e_data, energy_every=True, e_pre=e_pre, e_reg=e_reg, parts=parts)
+    launch_counts["gd_multi"] += 1
+    return MultiOut(*out, mx_sq[0], None if e_data is None else e_data[0], e_pre, e_reg)
 
-    def rows(on):
-        return torch.empty(n_inner, **f32) if on else None
 
-    def tiles(on):
-        return torch.empty(n_tiles, **f32) if on else None
+# kernel E's chunks enqueued per host read of its loop (GdMultiLoop)
+GD_MULTI_LAUNCHES = 8
+# the fewest z planes of a segment of kernel E's march (gd_tile_plan's min_lz)
+GD_MULTI_MIN_LZ = 2
 
-    psi_out, psi_tmp = torch.empty_like(psi), torch.empty_like(psi)
-    tnp_out, tnp_tmp = torch.empty_like(tnp), torch.empty_like(tnp)
-    vel_out = torch.empty_like(psi) if has_vel else None
-    vel_tmp = torch.empty_like(psi) if has_vel else None
-    dU = torch.empty_like(psi)
-    mx_sq = rows(True)
-    e_data, e_pre, e_reg = rows(with_energy), rows(with_verbose), rows(with_verbose)
-    part_data, part_pre, part_reg = tiles(with_energy), tiles(with_verbose), tiles(with_verbose)
-    _launch(
-        "gd_multi", "sobfu_gd_multi", dev,
-        _check("psi", psi, (3,) + dims, dev),
-        _check("tnp", tnp, dims, dev),
-        _check("vel", vel, (3,) + dims, dev) if has_vel else None,
-        _check("tg", tg, dims, dev),
-        _check("live", live, dims, dev),
-        taps.data_ptr(), s,
-        float(alpha), float(w_reg), float(momentum) if has_vel else 0.0,
-        psi_out.data_ptr(), tnp_out.data_ptr(), _ptr(vel_out),
-        psi_tmp.data_ptr(), tnp_tmp.data_ptr(), _ptr(vel_tmp), dU.data_ptr(),
-        mx_sq.data_ptr(), _ptr(e_data), _ptr(e_pre), _ptr(e_reg),
-        _ptr(part_data), _ptr(part_pre), _ptr(part_reg),
-        n_inner, Z, Y, X, _K(K),
-    )
-    return MultiOut(psi_out, tnp_out, vel_out, mx_sq, e_data, e_pre, e_reg)
+
+def gd_multi_plan(dims, n_taps: int, n_sm: int = 132) -> dict:
+    """Kernel E's tile plan: :func:`gd_tile_plan` with segments down to
+    GD_MULTI_MIN_LZ planes, so that a small grid still gives every SM
+    several blocks."""
+    return gd_tile_plan(dims, n_taps, n_sm, min_lz=GD_MULTI_MIN_LZ)
+
+
+class GdMultiLoop:
+    """The state of one solve's loop on kernel E, the coarse pyramid level's
+    ``fused_gd_multi_fold`` loop (sobfu_tpu/solver.py:337-345): chunks of
+    n_inner iterations, each the stop rule's unit — the solve stops after
+    the first chunk whose LAST norm is at or under thresh, whose LAST energy
+    stalls at a check (it1 % stall_window == 0), or that reaches max_iter,
+    so a stop overshoots the single-step one by up to n_inner - 1.
+
+    psi f32[3,Z,Y,X]; tnp, tg, live f32[Z,Y,X]. On the card the state lives
+    in a ping-pong pair of buffers allocated here, once per solve (psi and
+    tnp are copied in), with the ctl and norm rows and the partials;
+    :meth:`run` enqueues up to GD_MULTI_LAUNCHES launches, each of which
+    tests the stop rule on the card before its first grid sync (the stall
+    reference energy carried there), and reads the outcome back once. On
+    the CPU each chunk is one :func:`gd_multi` call (its plain version) and
+    the same rule is tested on the host (``solver.stall_check``). verbose:
+    the record_energy rows, one chunk per call.
+    """
+
+    def __init__(self, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, thresh,
+                 max_iter: int, n_inner: int, stall_window: int = 0, stall_rel: float = 0.0,
+                 verbose: bool = False):
+        import numpy as np
+
+        if stall_window % n_inner:
+            raise ValueError(f"stall_window {stall_window} is not a multiple of {n_inner}")
+        self.args = (tg, live, taps, alpha, w_reg, momentum, K)
+        self.rule = (float(np.float32(thresh)), int(max_iter), int(stall_window),
+                     float(stall_rel))
+        self.n_inner, self.verbose = int(n_inner), bool(verbose)
+        self.count, self.mnorm, self.e_ref, self.stalled = 0, float("inf"), float("inf"), False
+        self.cpu = _on_cpu(psi)
+        vel = torch.zeros_like(psi) if momentum is not None else None
+        if self.cpu:
+            self.cur = (psi, tnp, vel)
+            return
+        dev = psi.device
+        dims = tuple(psi.shape[1:])
+        other = (torch.empty_like(psi), torch.empty_like(tnp),
+                 torch.empty_like(psi) if vel is not None else None)
+        self.bufs = ((psi.clone(), tnp.clone(), vel), other)
+        self.plan = gd_multi_plan(dims, taps.shape[0], _n_sm(dev))
+        M, f32 = GD_MULTI_LAUNCHES, dict(dtype=torch.float32, device=dev)
+        # one device buffer for all the host reads of a call: ctl rows
+        # 0..M (4 int32 each), then the norm rows (float32 bits)
+        self.out = torch.zeros(4 * (M + 1) + M * self.n_inner, dtype=torch.int32, device=dev)
+        self.e_data = torch.empty((M, self.n_inner), **f32) if stall_window else None
+        self.verb = (torch.empty(self.n_inner, **f32), torch.empty(self.n_inner, **f32)) \
+            if verbose else (None, None)
+        self.parts = (torch.empty(4 * _n_tiles(dims), **f32) if stall_window or verbose
+                      else None)
+
+    @property
+    def running(self) -> bool:
+        """The loop's predicate: under max_iter, the last norm over thresh,
+        no stall."""
+        thresh, max_iter = self.rule[:2]
+        return self.count < max_iter and self.mnorm > thresh and not self.stalled
+
+    def run(self, n_launch: int):
+        """Up to n_launch chunks from the current state (the loop must be
+        running). Returns (the chunks that ran, and with verbose the first
+        chunk's rows f32[n_inner, 3]: pre-update data energy, pre-update
+        regulariser energy, update norm)."""
+        import numpy as np
+
+        from sobfu_tpu_torch.solver import stall_check
+
+        if not 1 <= n_launch <= GD_MULTI_LAUNCHES or (self.verbose and n_launch != 1):
+            raise ValueError(f"a call is 1..{GD_MULTI_LAUNCHES} launches (1 with verbose), "
+                             f"got {n_launch}")
+        if not self.running:
+            raise ValueError("the loop has stopped")
+        tg, live, taps, alpha, w_reg, momentum, K = self.args
+        thresh, max_iter, stall_window, stall_rel = self.rule
+        n = self.n_inner
+        count0 = self.count
+        if self.cpu:
+            ran, rows, verb, last = 0, np.zeros((n_launch, n), np.float32), None, None
+            for k in range(n_launch):
+                if self.stalled or self.count >= max_iter or (k and not np.sqrt(last) > thresh):
+                    break
+                at_check = bool(stall_window) and (self.count + n) % stall_window == 0
+                out = gd_multi(*self.cur, tg, live, taps, alpha, w_reg, momentum, K, n,
+                               with_energy=at_check, with_verbose=self.verbose)
+                self.cur = (out.psi, out.tnp, out.vel)
+                rows[k] = out.mx_sq.numpy()
+                last = rows[k, -1]
+                self.count += n
+                ran += 1
+                if at_check:
+                    self.stalled, self.e_ref = stall_check(float(out.e_data[-1]), self.e_ref,
+                                                           self.count, stall_window, stall_rel)
+                if self.verbose:
+                    verb = torch.stack([out.e_pre, out.e_reg, torch.sqrt(out.mx_sq)], dim=1)
+        else:
+            M, verb = GD_MULTI_LAUNCHES, None
+            ctl = self.out[:4 * (n_launch + 1)].view(n_launch + 1, 4)
+            max_sq = self.out[4 * (M + 1):4 * (M + 1) + n_launch * n].view(torch.float32)
+            max_sq = max_sq.view(n_launch, n)
+            start = np.array([self.count, 1, 0, 0], np.int32)
+            start[3] = np.float32(self.e_ref).view(np.int32)
+            ctl[0].copy_(torch.from_numpy(start))
+            _launch_gd_multi(None, self.bufs, tg, live, taps, alpha, w_reg, momentum, K,
+                             self.plan, n, n_launch, max_sq, ctl, thresh, max_iter, stall_window,
+                             stall_rel, None if self.e_data is None else self.e_data[:n_launch],
+                             False, *self.verb, self.parts)
+            if self.verbose:
+                verb = torch.stack([*self.verb, torch.sqrt(max_sq[0])], dim=1)
+            host = self.out.cpu().numpy()
+            end = host[4 * n_launch:4 * n_launch + 4]
+            rows = host[4 * (M + 1):4 * (M + 1) + n_launch * n].view(np.float32).reshape(-1, n)
+            ran, rest = divmod(int(end[0]) - count0, n)
+            if rest or not 0 <= ran <= n_launch:
+                raise RuntimeError(f"kernel E's iteration counter is inconsistent: {end}")
+            self.count = int(end[0])
+            self.stalled = bool(end[2])
+            self.e_ref = float(end[3:4].view(np.float32)[0])
+            launch_counts["gd_multi"] += ran  # launches are counted where they run: on the card
+            empty_launches["gd_multi"] += n_launch - ran
+        if ran:
+            self.mnorm = float(np.sqrt(rows[ran - 1, -1]))
+        host_reads["gd_multi"] += 1
+        return ran, verb
+
+    def state(self):
+        """(psi, tnp, vel or None) after the iterations run so far."""
+        if self.cpu:
+            return tuple(self.cur)
+        return self.bufs[self.count & 1]

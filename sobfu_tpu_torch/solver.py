@@ -132,14 +132,15 @@ def sobolev_smooth(dU: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class SolverState(NamedTuple):
-    psi: torch.Tensor          # f32[3,Z,Y,X] absolute coords (voxel units)
-    tsdf_n_psi: torch.Tensor   # f32[Z,Y,X]   warped live tsdf
-    iter: int                  # iterations completed
-    max_norm: float            # last max-update norm
-    vel: Optional[torch.Tensor]  # heavy-ball velocity (None without momentum)
-    e_ref: float = float("inf")
-    stalled: bool = False
+def stall_check(e_now, e_ref, it1: int, stall_window: int, stall_rel: float):
+    """The data-energy stall stop at check iteration it1 (sobfu_tpu/solver.py
+    :673-693), in float32: (stalled, the new reference energy)."""
+    e_now = np.float32(e_now)
+    stalled = bool(
+        it1 >= 2 * stall_window
+        and np.float32(e_ref) - e_now < np.float32(stall_rel) * abs(e_now)
+    )
+    return stalled, float(e_now)
 
 
 class SolveResult(NamedTuple):
@@ -203,11 +204,12 @@ def estimate_psi(
 
     inner_steps > 1: run the loop in chunks of that many iterations, each
     one launch of kernel E (the coarse pyramid level's
-    ``fused_gd_multi_fold``). The stop tests read the chunk's LAST norm and
-    energy at ``iter + inner_steps``, so a mid-chunk stop overshoots by up
-    to inner_steps - 1 iterations (sobfu_tpu/solver.py:337-345); needs
-    stall_window % inner_steps == 0. The caller applies JAX's
-    preconditions (Solver, estimate_psi_pyramid).
+    ``fused_gd_multi_fold``), up to ``kernels.GD_MULTI_LAUNCHES`` launches
+    per host read (``kernels.GdMultiLoop``). The stop tests read the
+    chunk's LAST norm and energy at ``iter + inner_steps``, so a mid-chunk
+    stop overshoots by up to inner_steps - 1 iterations
+    (sobfu_tpu/solver.py:337-345); needs stall_window % inner_steps == 0.
+    The caller applies JAX's preconditions (Solver, estimate_psi_pyramid).
 
     inv_multigrid: the inverse is :func:`pyramid.estimate_inverse_multigrid`
     (with a window and even dims): one anchoring step at full resolution,
@@ -234,46 +236,24 @@ def estimate_psi(
     def warp1(vol, at, floor=False):
         return kernels.warp(vol[None], at, K, (floor,))[0]
 
-    def stall_check(e_now, e_ref, it1):
-        """(stalled, the new reference) at check iteration it1, in float32."""
-        e_now = np.float32(e_now)
-        stalled = bool(
-            it1 >= 2 * stall_window
-            and np.float32(e_ref) - e_now < np.float32(stall_rel) * abs(e_now)
-        )
-        return stalled, float(e_now)
-
-    def gd_chunks(state: SolverState) -> SolverState:
-        """n_step iterations in one launch of kernel E; the stop values are
-        the last iteration's."""
-        psi, tsdf_n_psi = state.psi, state.tsdf_n_psi
-        it1 = state.iter + n_step
-        at_check = bool(stall_window) and it1 % stall_window == 0
-        out = kernels.gd_multi(psi, tsdf_n_psi, state.vel, tsdf_global, tsdf_n, taps_t, alpha,
-                               w_reg, momentum, K, n_step, with_energy=at_check,
-                               with_verbose=record_energy)
-        mnorm = torch.sqrt(out.mx_sq[-1])
-        kernels.host_reads["gd_multi"] += 2 if at_check else 1
-        if record_energy:
-            row0 = max(0, min(state.iter, energy_cap - n_step))
-            energy[row0:row0 + n_step] = torch.stack(
-                [out.e_pre, out.e_reg, torch.sqrt(out.mx_sq)], dim=1
-            )
-        e_ref, stalled = state.e_ref, state.stalled
-        if at_check:
-            stall, e_ref = stall_check(float(out.e_data[-1]), e_ref, it1)
-            stalled = stalled or stall
-        return SolverState(out.psi, out.tnp, it1, float(mnorm), out.vel, e_ref, stalled)
-
     tnp0 = warp1(tsdf_n, psi)
     if n_step > 1:
-        # kernel E: the stop test reads the host once per chunk and a
-        # mid-chunk stop overshoots (the JAX fused_gd_multi_fold contract)
-        state = SolverState(psi, tnp0, 0, float("inf"),
-                            torch.zeros_like(psi) if momentum is not None else None)
-        while state.iter < max_iter and state.max_norm > thresh and not state.stalled:
-            state = gd_chunks(state)
-        psi, tsdf_n_psi, it, mnorm = state.psi, state.tsdf_n_psi, state.iter, state.max_norm
+        # kernel E (kernels.GdMultiLoop): up to GD_MULTI_LAUNCHES chunks of
+        # n_step iterations per host read, the stop test on the device; a
+        # mid-chunk stop overshoots (the JAX fused_gd_multi_fold contract).
+        # record_energy writes each chunk's rows: one chunk per read.
+        loop = kernels.GdMultiLoop(psi, tnp0, tsdf_global, tsdf_n, taps_t, alpha, w_reg,
+                                   momentum, K, thresh, max_iter, n_step, stall_window,
+                                   stall_rel, verbose=record_energy)
+        while loop.running:
+            it0 = loop.count
+            chunks = -(-(max_iter - it0) // n_step)
+            _, rows = loop.run(1 if record_energy else min(kernels.GD_MULTI_LAUNCHES, chunks))
+            if record_energy:
+                row0 = max(0, min(it0, energy_cap - n_step))
+                energy[row0:row0 + n_step] = rows
+        psi, tsdf_n_psi = loop.state()[:2]
+        it, mnorm = loop.count, loop.mnorm
     else:
         # kernel A: chunks of iterations with the norm test on the device
         # (kernels.GdLoop), so the count is the JAX while_loop's exactly; a
@@ -300,7 +280,7 @@ def estimate_psi(
             if record_energy:
                 energy[min(it - 1, energy_cap - 1)] = torch.stack(pre + [pre[0].new_tensor(mnorm)])
             if at_check and d == n:
-                stalled, e_ref = stall_check(e[0], e_ref, it)
+                stalled, e_ref = stall_check(e[0], e_ref, it, stall_window, stall_rel)
         psi, tsdf_n_psi = (t[0] for t in loop.state()[:2])
 
     if skip_tails:

@@ -548,3 +548,88 @@ def test_warp_variants_match_plain(cuda, K, floor):
                 assert torch.equal(got[c], want[c]), (dims, c)
             else:
                 torch.testing.assert_close(got[c], want[c], atol=1e-5, rtol=0)
+
+
+def _per_chunk_on_card(psi, tnp, tg, live, taps, K, max_iter, thresh, momentum, stall_window,
+                       stall_rel, n=16):
+    """Kernel E's loop as it was: one gd_multi launch a chunk, then the host
+    reads its last norm (and its last energy at a check)."""
+    vel = torch.zeros_like(psi) if momentum is not None else None
+    thresh = float(np.float32(thresh))
+    it, mnorm, e_ref, stalled, rows = 0, float("inf"), float("inf"), False, []
+    while it < max_iter and mnorm > thresh and not stalled:
+        it += n
+        at_check = bool(stall_window) and it % stall_window == 0
+        out = kernels.gd_multi(psi, tnp, vel, tg, live, taps, 0.05, 0.2, momentum, K, n,
+                               with_energy=at_check)
+        psi, tnp, vel = out.psi, out.tnp, out.vel
+        rows.append(out.mx_sq.cpu().numpy())
+        mnorm = float(np.sqrt(rows[-1][-1]))
+        if at_check:
+            stalled, e_ref = solver.stall_check(float(out.e_data[-1]), e_ref, it, stall_window,
+                                                stall_rel)
+    return psi, tnp, vel, it, mnorm, stalled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["norm_stop", "cap_40", "cap_over_8_chunks", "stall_stop"])
+def test_gd_multi_loop_bitwise_vs_per_chunk_launches(cuda, case):
+    """kernels.GdMultiLoop (up to 8 launches per host read, the stop test on
+    the card) against one E launch per chunk with the test on the host, bit
+    for bit: state, velocity, iterations, last norm, the stall; and the
+    launch, empty-launch and host-read counts."""
+    dims, K = (16, 16, 64), 1
+    d = _multi_inputs(cuda, dims, seed=40)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    max_iter, momentum, stall_window, stall_rel, thresh = 400, 0.95, 0, 0.0, -1.0
+    if case == "norm_stop":  # the third chunk's last norm: a stop by then
+        out = kernels.gd_multi(d["psi"], d["tnp"], torch.zeros_like(d["psi"]), d["tg"], d["live"],
+                               taps, 0.05, 0.2, momentum, K, 48)
+        thresh = float(np.sqrt(out.mx_sq.cpu().numpy()[47]))
+    elif case == "cap_40":
+        max_iter = 40
+    elif case == "cap_over_8_chunks":
+        max_iter, momentum = 200, None
+    else:
+        stall_window, stall_rel = 16, 1.0
+    want = _per_chunk_on_card(d["psi"], d["tnp"], d["tg"], d["live"], taps, K, max_iter, thresh,
+                              momentum, stall_window, stall_rel)
+    kernels.reset_launch_counts()
+    loop = kernels.GdMultiLoop(d["psi"], d["tnp"], d["tg"], d["live"], taps, 0.05, 0.2,
+                               momentum, K, thresh, max_iter, 16, stall_window, stall_rel)
+    reads = 0
+    while loop.running:
+        loop.run(min(kernels.GD_MULTI_LAUNCHES, -(-(max_iter - loop.count) // 16)))
+        reads += 1
+    psi, tnp, vel = loop.state()
+    assert (loop.count, loop.mnorm, loop.stalled) == want[3:]
+    assert torch.equal(psi, want[0]) and torch.equal(tnp, want[1])
+    if momentum is not None:
+        assert torch.equal(vel, want[2])
+    chunks = loop.count // 16
+    assert kernels.launch_counts["gd_multi"] == chunks
+    assert kernels.host_reads["gd_multi"] == reads == -(-chunks // kernels.GD_MULTI_LAUNCHES)
+    if case == "norm_stop":
+        assert chunks <= 3 and kernels.empty_launches["gd_multi"] == 8 - chunks
+    if case.startswith("cap"):
+        assert loop.count == -(-max_iter // 16) * 16
+    if case == "stall_stop":
+        assert loop.stalled and loop.count < max_iter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,K,iters,warm", [((128,) * 3, 2, 3, True), ((64,) * 3, 1, 3, True),
+                                               ((128,) * 3, None, 48, False)])
+def test_inverse_kernel_at_the_main_paths_shapes(cuda, dims, K, iters, warm):
+    """C at the slice's (128^3, K=2, 3 warm steps), the multigrid coarse
+    inverse's (64^3, K=1, 3 warm steps) and the shipped ini's (128^3, 48
+    exact steps from the identity) shapes: atol 1e-5 against its plain
+    version (the corners' psi - index is the plain version's subtraction)."""
+    rng = np.random.default_rng(9)
+    ident = fields.identity_field(dims, device=cuda)
+    psi = ident + torch.as_tensor(rng.uniform(-0.9, 0.9, (3,) + dims), dtype=torch.float32,
+                                  device=cuda)
+    init = kernels.inverse_fixed_point_plain(psi, 2, K if K is not None else 2) if warm else None
+    got = kernels.inverse_fixed_point(psi, iters, K, init)
+    want = kernels.inverse_fixed_point_plain(psi, iters, K, init)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

@@ -375,3 +375,165 @@ def test_ring_emulation_equals_sobolev_smooth(dims, n_taps, tile):
     want = solver.sobolev_smooth(torch.as_tensor(dU), torch.as_tensor(taps)).numpy()
     assert np.isfinite(got).all()  # no tap ever read a corner or a z-halo plane's halo
     np.testing.assert_allclose(got, want[:, z0:z1, y0:y1, x0:x1], rtol=0, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernel E's loop (kernels.GdMultiLoop) against the per-chunk loop
+# ---------------------------------------------------------------------------
+
+
+def _chunk_loop(psi, tg, live, K, max_iter, thresh, momentum, stall_window, stall_rel, n=16):
+    """The loop GdMultiLoop replaced: one kernel E chunk of n iterations,
+    then the host reads its last norm (and its last energy at a check)."""
+    taps = torch.as_tensor(TAPS)
+    thresh = float(np.float32(thresh))
+    tnp = kernels.warp_plain(live[None], psi, K, (False,))[0]
+    vel = torch.zeros_like(psi) if momentum is not None else None
+    it, mnorm, e_ref, stalled = 0, float("inf"), float("inf"), False
+    while it < max_iter and mnorm > thresh and not stalled:
+        it += n
+        at_check = bool(stall_window) and it % stall_window == 0
+        out = kernels.gd_multi_plain(psi, tnp, vel, tg, live, taps, float(np.float32(0.05)),
+                                     float(np.float32(0.2)), momentum, K, n, with_energy=at_check)
+        psi, tnp, vel = out.psi, out.tnp, out.vel
+        mnorm = float(torch.sqrt(out.mx_sq[-1]))
+        if at_check:
+            stalled, e_ref = solver.stall_check(float(out.e_data[-1]), e_ref, it, stall_window,
+                                                stall_rel)
+    return psi, tnp, it, mnorm
+
+
+def _x64(dims, seed):
+    """A smooth x-profile and its copy moved 1.2 voxels, on an X = 64 grid
+    where the fold rule runs kernel E (solver.runs_gd_multi)."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*[np.arange(d, dtype=np.float32) for d in dims], indexing="ij")
+    ph = rng.uniform(0, 2 * np.pi, 2)
+
+    def profile(shift):
+        p = (x - 32 - shift - 0.5 * np.sin(z + ph[0]) - 0.3 * np.cos(y + ph[1])) / 4
+        return torch.as_tensor(np.clip(p, -1, 1).astype(np.float32))
+
+    return fields.identity_field(dims), profile(0.0), profile(1.2)
+
+
+# (max_iter, the norm stop's chunk or None, momentum, stall_window, stall_rel)
+E_LOOP_CASES = {
+    "norm_stop_mid_call": (400, 3, 0.95, 0, 0.0),
+    "cap_40": (40, None, 0.95, 0, 0.0),
+    "cap_over_8_chunks": (200, None, None, 0, 0.0),
+    "stall_stop": (400, None, 0.95, 16, 1e-2),
+}
+
+
+@pytest.mark.parametrize("dims", [(8, 8, 64), (16, 16, 64)], ids=["8x8x64", "16x16x64"])
+@pytest.mark.parametrize("case", list(E_LOOP_CASES))
+def test_e_loop_equals_per_chunk_loop(case, dims):
+    """solver.estimate_psi with inner_steps=16 (GdMultiLoop on the plain
+    version: up to GD_MULTI_LAUNCHES chunks per host read, the stop rule
+    tested per chunk as the card tests it) against one chunk and one read
+    per chunk: the same iterations, norm and fields bit for bit, with a norm
+    stop inside a chunk in the middle of a call, caps of 40 (overshot to 48)
+    and 200 (13 chunks, two reads), and a stall stop."""
+    max_iter, stop_chunk, momentum, stall_window, stall_rel = E_LOOP_CASES[case]
+    psi, tg, live = _x64(dims, 3)
+    K, thresh = 2, -1.0
+    if stop_chunk is not None:  # a norm between chunk stop_chunk's first and last ones
+        rows = kernels.gd_multi_plain(psi, kernels.warp_plain(live[None], psi, K, (False,))[0],
+                                      torch.zeros_like(psi), tg, live, torch.as_tensor(TAPS),
+                                      0.05, 0.2, momentum, K, 16 * stop_chunk).mx_sq
+        norms = np.sqrt(rows.numpy())[16 * (stop_chunk - 1):]
+        thresh = float(np.sort(norms)[8])
+    want = _chunk_loop(psi, tg, live, K, max_iter, thresh, momentum, stall_window, stall_rel)
+    kernels.reset_launch_counts()
+    got = solver.estimate_psi(psi, tg, tg, live, live, TAPS, 0.05, 0.2, max_iter, thresh,
+                              warp_window=K, momentum=momentum, stall_window=stall_window,
+                              stall_rel=stall_rel, skip_tails=True, inner_steps=16)
+    assert got.iters == want[2] and got.max_norm == want[3]
+    assert torch.equal(got.psi, want[0]) and torch.equal(got.tsdf_n_psi, want[1])
+    chunks = got.iters // 16
+    if stop_chunk is not None:
+        assert chunks == stop_chunk and got.max_norm <= thresh
+    if case.startswith("cap"):
+        assert got.iters == -(-max_iter // 16) * 16
+    if case == "stall_stop":
+        assert got.iters < max_iter and got.max_norm > thresh
+    assert kernels.host_reads["gd_multi"] == -(-chunks // kernels.GD_MULTI_LAUNCHES)
+
+
+def test_e_loop_refuses_a_stopped_loop_and_oversized_calls():
+    psi, tg, live = _x64((8, 8, 64), 4)
+    tnp = kernels.warp_plain(live[None], psi, 2, (False,))[0]
+    loop = kernels.GdMultiLoop(psi, tnp, tg, live, torch.as_tensor(TAPS), 0.05, 0.2, None, 2,
+                               -1.0, 16, 16)
+    with pytest.raises(ValueError, match="launches"):
+        loop.run(kernels.GD_MULTI_LAUNCHES + 1)
+    assert loop.run(2)[0] == 1 and loop.count == 16 and not loop.running
+    with pytest.raises(ValueError, match="stopped"):
+        loop.run(1)
+
+
+# e_now, e_ref, it1 with stall_window 16, stall_rel 0.25: the threshold
+# 0.25 * |e_now| and e_ref - e_now at and around it, non-finite energies
+STALL_EDGES = [
+    (100.0, 125.0, 32),                                 # e_ref - e_now == the threshold
+    (100.0, float(np.nextafter(np.float32(125), 0)), 32),  # one ulp under it: stalls
+    (100.0, float(np.nextafter(np.float32(125), 200)), 32),
+    (100.0, 110.0, 16),                                 # it1 < 2 stall_window
+    (-100.0, -80.0, 48),                                # a negative energy
+    (3e38, float("inf"), 32),                           # inf - e_now
+    (float("inf"), float("inf"), 32),                   # inf - inf is NaN
+    (float("nan"), 1.0, 32),
+    (1.0, float("nan"), 32),
+    (1e-40, 1e-40, 32),                                 # subnormals
+    (0.0, 0.0, 32),
+]
+
+
+def _card_stall(e_now, e_ref, it1, stall_window, stall_rel):
+    """csrc/gd_multi.cu's stall decision, step by step in numpy float32:
+    it1 >= 2 stall_window && __fsub_rn(e_ref, e_now) < __fmul_rn(stall_rel,
+    fabsf(e_now)), each operation one rounding."""
+    e_now, e_ref, rel = np.float32(e_now), np.float32(e_ref), np.float32(stall_rel)
+    with np.errstate(invalid="ignore", over="ignore"):
+        d = np.subtract(e_ref, e_now, dtype=np.float32)
+        t = np.multiply(rel, np.abs(e_now), dtype=np.float32)
+    return bool(it1 >= 2 * stall_window and d < t)
+
+
+@pytest.mark.parametrize("e_now,e_ref,it1", STALL_EDGES)
+def test_card_stall_predicate_equals_stall_check(e_now, e_ref, it1):
+    """A numpy emulation of the decision kernel E makes on the card equals
+    the host's solver.stall_check (which GdMultiLoop's CPU path and kernel
+    A's loop use) on edge values."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = solver.stall_check(e_now, e_ref, it1, 16, 0.25)[0]
+    assert _card_stall(e_now, e_ref, it1, 16, 0.25) is want
+    if (e_now, e_ref) == (100.0, 125.0):
+        assert want is False
+    if e_ref == float(np.nextafter(np.float32(125), 0)):
+        assert want is True
+
+
+# ---------------------------------------------------------------------------
+# kernel C's thread-to-voxel mapping
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(12, 16, 20), (6, 8, 10), (64, 64, 64)])
+def test_inverse_mapping_covers_every_voxel_once(dims):
+    """csrc/inverse.cu: block b's thread t takes voxels b * 256 * kPer + t +
+    j * 256 (j < kPer), each decoded by one 32-bit division chain; over the
+    launch's grid every voxel is written exactly once, at its own (x, y, z)."""
+    Z, Y, X = dims
+    N = Z * Y * X
+    per, tile = kernels.INVERSE_PER, kernels.TILE
+    blocks = -(-(-(-N // per)) // tile)
+    b, t, j = np.meshgrid(np.arange(blocks), np.arange(tile), np.arange(per), indexing="ij")
+    i = (b * tile * per + t + j * tile).ravel()
+    i = i[i < N]
+    assert np.array_equal(np.bincount(i, minlength=N), np.ones(N, np.int64))
+    row = i // X
+    x, z = i - row * X, row // Y
+    y = row - z * Y
+    assert np.array_equal(np.stack([z, y, x]), np.stack(np.unravel_index(i, dims)))

@@ -284,6 +284,40 @@ def test_chunked_solve_matches_jax_multi_fold(thresh):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("max_iter,thresh,want", [(96, 0.0305, 48), (40, -1.0, 48),
+                                                  (24, -1.0, 32), (96, -1.0, 64)],
+                         ids=["norm-stop", "cap-40", "cap-24", "stall-stop"])
+def test_multi_launch_loop_matches_jax_multi_fold(max_iter, thresh, want):
+    """The E loop as the solves run it (kernels.GdMultiLoop: up to 8 chunks
+    of 16 per host read, here on the plain version) against JAX's chunked
+    path: the norm stop inside a chunk lands on 48, caps of 40 and 24
+    overshoot to 48 and 32 as JAX's while_loop does, the stall stop lands
+    on 64. JAX runs
+    with record_energy as the test above does (the same compiled kernel;
+    the rows do not change its stops), the port without it, so several
+    chunks go per read: one read covers each solve here."""
+    from sobfu_tpu_torch.ops import kernels
+
+    tg, tn = _x64_scene()
+    taps = ts.sobolev_filter_1d(7, 0.1)
+    kw = dict(warp_window=2, momentum=0.95, inverse_iters=2, stall_window=16, stall_rel=1e-2)
+    t = torch.from_numpy
+    kernels.reset_launch_counts()
+    port = ts.estimate_psi(tf.identity_field(X64_DIMS), t(tg), t(tg), t(tn), t(tn), taps, 0.05,
+                           0.2, max_iter, thresh, inner_steps=16, **kw)
+    assert kernels.host_reads["gd_multi"] == -(-want // (16 * kernels.GD_MULTI_LAUNCHES))
+    j = jnp.asarray
+    want_j = js.estimate_psi(jf.identity_field(X64_DIMS), j(tg), j(tg), j(tn), j(tn), j(taps),
+                             jnp.float32(0.05), jnp.float32(0.2), jnp.int32(max_iter),
+                             jnp.float32(thresh), fused_db=True, db_interpret=True,
+                             inner_steps=16, taps_static=tuple(float(v) for v in taps),
+                             record_energy=True, energy_cap=96, **kw)
+    assert port.iters == int(want_j.iters) == want
+    np.testing.assert_allclose(port.psi.numpy(), np.asarray(want_j.psi), atol=2e-5)
+    np.testing.assert_allclose(port.tsdf_n_psi.numpy(), np.asarray(want_j.tsdf_n_psi), atol=1e-5)
+    np.testing.assert_allclose(port.max_norm, float(want_j.max_norm), rtol=1e-5)
+
+
 def test_stall_message_counts_every_pyramid_level(capsys):
     """iters includes the coarse level: the stall verdict compares it with
     MAX_ITER * PYRAMID_LEVELS (sobfu_tpu/solver.py:1451-1453)."""

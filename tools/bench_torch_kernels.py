@@ -1,5 +1,5 @@
-"""Kernels B and A of the PyTorch port timed on one CUDA card, for comparing
-two trees inside one call.
+"""Kernels B, A, E and C of the PyTorch port timed on one CUDA card, for
+comparing two trees inside one call.
 
     python tools/bench_torch_kernels.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -17,6 +17,13 @@ yardsticks (``cuda_ms``: one event pair around a run of 20 calls, median of
       at 64^3, K=1, momentum 0.95; over S = 4 scenes of 128^3, K=2,
       momentum 0.95; and, where the tree has kernels.GdLoop, the same through
       chunks of 16 iterations per call (per iteration)
+  E   one launch of 16 iterations at 64^3, K=1, 7 taps, momentum 0.95 (the
+      pyramid's coarse level); where the tree has kernels.GdMultiLoop, the
+      same through the loop (8 launches per call, per launch) and one
+      launch at each segment length GD_MULTI_MIN_LZ of 2, 4 and 8 planes
+  C   3 warm steps at 128^3, K=2 (the slice); 3 warm steps at 64^3, K=1
+      (the pyramid's multigrid coarse inverse); 48 exact steps from the
+      identity at 128^3 (the shipped ini)
 
 Only wrappers that every tree of the port has are called, so the same
 script measures a tree from before a kernel's redesign and one after it:
@@ -144,6 +151,35 @@ def main(argv=None) -> int:
         out["gd_loop_64_K1_momentum_0.95"] = smoke.timed_chunks(
             kernels, "gd_iteration", psi[None], tnp[None], tg[None], live[None], taps, 0.05, 0.2,
             0.95, 1)
+
+    # E at the coarse level's shapes (chip_smoke.py check_gd_multi's case)
+    psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+    e_args = (psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1, 16)
+    out["gd_multi_64_K1_momentum_0.95"] = both(lambda: kernels.gd_multi(*e_args))
+    if hasattr(kernels, "GdMultiLoop"):
+        loop = kernels.GdMultiLoop(psi, tnp, tg, live, taps, 0.05, 0.2, 0.95, 1, -1.0, 1 << 30,
+                                   16)
+        m = kernels.GD_MULTI_LAUNCHES
+        out["gd_multi_loop_64_K1_momentum_0.95"] = {
+            "ms": smoke.cuda_ms(lambda: loop.run(m), reps=4) / m,
+            "device_ms": smoke.device_ms(lambda: loop.run(m), reps=4) / m}
+        default = kernels.GD_MULTI_MIN_LZ
+        for lz in (2, 4, 8):
+            kernels.GD_MULTI_MIN_LZ = lz
+            plan = kernels.gd_multi_plan(dims, 7, torch.cuda.get_device_properties(0)
+                                         .multi_processor_count)
+            out[f"gd_multi_64_K1_momentum_0.95_LZ{plan['LZ']}"] = dict(
+                both(lambda: kernels.gd_multi(*e_args)), blocks=plan["blocks"])
+        kernels.GD_MULTI_MIN_LZ = default
+
+    # C: the slice's warm window inverse, the multigrid coarse one, the shipped exact one
+    warm = kernels.inverse_fixed_point_plain(psi, 2, 1)
+    out["inverse_64_K1_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 1, warm))
+    dims, tg, live, ident = scene(128)
+    psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+    warm = kernels.inverse_fixed_point_plain(psi, 2, 2)
+    out["inverse_128_K2_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 2, warm))
+    out["inverse_128_exact_48"] = both(lambda: kernels.inverse_fixed_point(psi, 48, None))
 
     line = json.dumps(out)
     print(line, flush=True)
