@@ -89,6 +89,37 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 one scene inactive to its plain version and each scene to
                 an unbatched A launch bit for bit, and times it against
                 four unbatched A launches
+ 12. cli        sobfu_tpu_torch.cli.main in this process with --device cuda,
+                on scenes written by tools/make_synthetic_scene.py to a
+                temporary directory. (a) The production scene (--production:
+                the sphere preset, 320x240, the pyramid keys and
+                FINE_WINDOW=1) at 128^3, 6 frames: straight through with
+                --enable-log --checkpoint A.npz, then --max-frames 3
+                --checkpoint B.npz and --resume B.npz --checkpoint B.npz
+                --enable-log; A.npz and B.npz must agree key for key and bit
+                for bit, the resumed run must say "resumed at frame 3", its
+                last logged mesh and field (read back with the port's
+                loaders) must equal the straight run's, psi_inv must be
+                carried at full resolution (the ini has no key for the
+                half-res carry) and E, B, A, F and C must launch; per frame
+                the CLI's seconds, the checkpoint's save seconds and bytes,
+                and the decode milliseconds on the Python thread and through
+                the native prefetch loader (where its library builds; the
+                Python decoder must not run where it does). Then the
+                fine_window phase's params (Solver.inv_coarse) through
+                SobFusion and the checkpoint module: 3 + save + load + 3
+                frames bit for bit against 6 straight with psi_inv half-res,
+                the save and load seconds and bytes. (b) The same scene, 2
+                frames, with --enable-log --color-mesh --live-viz
+                --live-viz-port 0, and --enable-viz-detailed where
+                matplotlib imports: the logged mesh carries colours,
+                /state.json serves the panels, kernel C runs at full
+                resolution (the inverse warps are on) and the screenshot
+                exists. (c) tools/validate_torch_cli_scene.py on the
+                articulated scene, 20 frames at 64^3 (the preset's
+                compositive keys and NEW_SURFACE_GATE): every frame inside
+                2.2 voxels canonical and 1.5 voxels live RMSE; the curves
+                are printed
 The launch counts of each path are zeroed just before it and read just
 after; kernel A's count is the iterations that ran on the card (the
 device's counter), its launches after a stop are printed apart. The last
@@ -119,7 +150,9 @@ table.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -132,6 +165,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 DIM = 128
 TAPS, LAMBDA = 7, 0.1
+# the CLI gate's calibrated setting (tools/validate_cli_scene.py): 20 frames at 64^3
+GATE_FRAMES, GATE_DIM = 20, 64
 # the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): HBM3 bytes
 # per second and float32 operations per second outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1262,6 +1297,322 @@ def run_multiscene_phase(torch, kernels, n_frames=6):
     return [four["counts"], one["counts"]]
 
 
+@contextlib.contextmanager
+def patched(*triples):
+    """Set each (object, attribute, value) for the with-block, then restore."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in triples]
+    for obj, name, value in triples:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def run_cli(torch, kernels, argv, phase, viewer=None):
+    """sobfu_tpu_torch.cli.main(argv) in this process, its launch counts
+    zeroed just before it and read just after; a checkpoint load is timed
+    and printed. Returns (its stdout, each frame's seconds as the CLI times
+    them — the frame and a synchronise —, (seconds, bytes) of each
+    checkpoint save, the launch counts)."""
+    from sobfu_tpu_torch import cli
+    from sobfu_tpu_torch.utils import checkpoint
+
+    timers, saves, loads = [], [], []
+
+    class Timer(cli.SampledScopeTime):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+
+    def timed_save(path, fusion):
+        t0 = time.perf_counter()
+        save(path, fusion)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    def timed_load(path, fusion):
+        t0 = time.perf_counter()
+        load(path, fusion)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0, os.path.getsize(path)))
+
+    swaps = [(cli, "SampledScopeTime", Timer), (checkpoint, "save_checkpoint", timed_save),
+             (checkpoint, "load_checkpoint", timed_load)]
+    if viewer is not None:
+        swaps.append((cli, "LiveViewer", viewer))
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with patched(*swaps), contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(phase, f"cli: {line}")
+    for sec, size in loads:
+        log(phase, f"checkpoint load {sec:.4f} s, {size} bytes")
+    check(rc == 0, f"{phase}: the CLI exited {rc}")
+    return text, [ms / 1e3 for ms in timers[0].samples_ms], saves, counts
+
+
+def loader_check(text, no_native, phase):
+    """The frame decoder the CLI reported; the native loader must have run
+    wherever its library builds, unless --no-native-loader."""
+    from sobfu_tpu_torch import native
+
+    line = next(ln for ln in text.splitlines() if ln.startswith("frame decode:"))
+    log(phase, f"{line}; native.available() {native.available()}")
+    if native.available() and not no_native:
+        check("native" in line, f"{phase}: the Python decoder ran where the native loader builds")
+
+
+def decode_ms(depths, masks):
+    """Per-frame decode milliseconds of the scene's depth: on the Python
+    thread (--no-native-loader's decoder) and through the native prefetch
+    loader (None where its library does not build)."""
+    from sobfu_tpu_torch import io as sio
+    from sobfu_tpu_torch import native
+
+    py = []
+    for j, path in enumerate(depths):
+        t0 = time.perf_counter()
+        d = sio.load_depth(path)
+        if masks:
+            d = sio.apply_mask(d, sio.load_mask(masks[j]))
+        py.append(1e3 * (time.perf_counter() - t0))
+    if not native.available():
+        return py, None
+    nat = []
+    frames = iter(native.FrameLoader(depths, masks or None))
+    for _ in depths:
+        t0 = time.perf_counter()
+        next(frames)
+        nat.append(1e3 * (time.perf_counter() - t0))
+    return py, nat
+
+
+def same_checkpoints(a, b) -> bool:
+    """Two .npz checkpoints with the same keys, dtypes, shapes and bits."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+            and x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def cli_resume(torch, kernels, root, phase):
+    """Run (a): the production scene at 128^3, straight through and split
+    3 + resume. Returns the launch counts of its three CLI runs."""
+    import shutil
+
+    from sobfu_tpu_torch import io as sio
+
+    tool("make_synthetic_scene").main(
+        [os.path.join(root, "A"), "--frames", "6", "--dim", str(DIM), "--production"])
+    shutil.copytree(os.path.join(root, "A"), os.path.join(root, "B"))
+    runs, texts = [], []
+    for tag, argv in (
+        ("A", ["--enable-log", "--checkpoint"]),
+        ("B", ["--max-frames", "3", "--checkpoint"]),
+        ("B", ["--enable-log", "--resume", os.path.join(root, "B.npz"), "--checkpoint"]),
+    ):
+        scene = os.path.join(root, tag)
+        ck = os.path.join(root, f"{tag}.npz")
+        text, secs, saves, counts = run_cli(
+            torch, kernels,
+            [scene, os.path.join(scene, "params.ini"), *argv, ck, "--device", DEVICE], phase)
+        loader_check(text, False, phase)
+        start = 3 if "--resume" in argv else 0
+        for k, (sec, (save_s, size)) in enumerate(zip(secs, saves)):
+            log(phase, f"{tag} frame {start + k}: {sec:.4f} s (CLI), checkpoint save "
+                f"{save_s:.4f} s, {size} bytes")
+        runs.append(counts)
+        texts.append(text)
+    check("resumed at frame 3" in texts[2], f"{phase}: the resumed run did not say "
+          "'resumed at frame 3'")
+    same = same_checkpoints(os.path.join(root, "A.npz"), os.path.join(root, "B.npz"))
+    log(phase, f"6 frames straight and 3 + resume + 3 give the same checkpoint, key for key "
+        f"and bit for bit: {same}")
+    check(same, f"{phase}: the resumed run's checkpoint differs from the straight run's")
+    last = [sio.load_mesh_vtk(os.path.join(root, t, "meshes", "mesh_0005.vtk")) for t in "AB"]
+    fields = [sio.load_field_vti(os.path.join(root, t, "fields", "psi_0005.vti")) for t in "AB"]
+    check(np.array_equal(last[0].vertices, last[1].vertices) and np.array_equal(*fields),
+          f"{phase}: the resumed run's last mesh or field differs")
+    log(phase, f"last logged mesh ({last[0].n_triangles} triangles) and field equal: True")
+    with np.load(os.path.join(root, "A.npz")) as ck:
+        # the ini has no key for the half-res carry (Solver.inv_coarse): full resolution
+        check(ck["psi_inv"].shape == ck["psi"].shape == (3,) + (DIM,) * 3,
+              f"{phase}: psi_inv {ck['psi_inv'].shape} is not carried at full resolution")
+        log(phase, f"psi_inv carried at {ck['psi_inv'].shape[1:]} through the CLI")
+    for name in ("gd_multi", "warp", "gd_iteration", "compose_weight", "inverse_fixed_point"):
+        check(runs[0][name] > 0, f"{phase}: kernel {name} was never launched through the CLI")
+    scene = os.path.join(root, "A")
+    depths, _, masks = sio.list_frames(scene)
+    py, nat = decode_ms(depths, masks)
+    for j, ms in enumerate(py):
+        log(phase, f"decode frame {j}: {ms:.4f} ms on the Python thread (--no-native-loader), "
+            + ("native loader not available (its library does not build on this host)"
+               if nat is None else f"{nat[j]:.4f} ms through the native prefetch loader"))
+    return runs
+
+
+def cli_half_res_checkpoint(torch, ini, root, phase):
+    """The half-res carry across a checkpoint at 128^3: the fine_window
+    phase's params (Solver.inv_coarse, which has no .ini key) through
+    SobFusion and the checkpoint module, 3 frames + save + load + 3 frames
+    against 6 straight. Prints the save and load seconds and the bytes."""
+    from sobfu_tpu_torch.pipeline import SobFusion
+    from sobfu_tpu_torch.utils import checkpoint
+
+    params = tool("profile_torch_frame").production_params(ini, DIM, 2)
+    params.fine_window = 1
+    frames = render_frames(params, 6, 0.006, 0.2)
+
+    def fresh():
+        f = SobFusion(params, device=DEVICE)
+        f.need_inv_warps = False  # the no-log loop, as the CLI runs it without viz
+        return f
+
+    straight, first, resumed = fresh(), fresh(), fresh()
+    for d in frames:
+        straight(d)
+    for d in frames[:3]:
+        first(d)
+    path = os.path.join(root, "half_res.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, first)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(path, resumed)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for d in frames[3:]:
+        resumed(d)
+    a, b = checkpoint.state_dict(straight), checkpoint.state_dict(resumed)
+    same = sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a)
+    log(phase, f"half-res carry: psi_inv {a['psi_inv'].shape}; 3 + save + load + 3 equals 6 "
+        f"straight bit for bit: {same}; save {save_s:.4f} s, load {load_s:.4f} s, "
+        f"{os.path.getsize(path)} bytes")
+    check(a["psi_inv"].shape == (3,) + (DIM // 2,) * 3, f"{phase}: psi_inv is not half-res")
+    check(same, f"{phase}: the resumed state differs from the straight run's")
+
+
+def cli_visual(torch, kernels, root, phase):
+    """Run (b): the visual flags on the production scene, 2 frames. The
+    live viewer's /state.json is read after each update; every call of
+    kernel C records its grid. Returns the run's launch counts."""
+    import shutil
+    import urllib.request
+
+    from sobfu_tpu_torch import io as sio
+    from sobfu_tpu_torch import viz
+    from sobfu_tpu_torch.viewer import LiveViewer
+
+    scene = os.path.join(root, "V")
+    shutil.copytree(os.path.join(root, "A"), scene,
+                    ignore=shutil.ignore_patterns("meshes", "fields"))
+    argv = [scene, os.path.join(scene, "params.ini"), "--max-frames", "2", "--enable-log",
+            "--color-mesh", "--live-viz", "--live-viz-port", "0", "--device", DEVICE]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if has_mpl:
+        argv.append("--enable-viz-detailed")
+    else:
+        log(phase, "matplotlib is not installed on this host: --enable-viz and "
+            "--enable-viz-detailed are not run (tests/test_torch_viz.py and "
+            "tests/test_torch_cli_io.py run them on the CPU)")
+    served, grids, shots = [], [], []
+
+    class Probed(LiveViewer):
+        def update(self, *args, **kw):
+            super().update(*args, **kw)
+            url = f"http://127.0.0.1:{self.port}/state.json"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                served.append(json.loads(r.read()))
+
+    inverse, screenshot = kernels.inverse_fixed_point, viz.save_screenshot
+
+    def recorded(psi, *args, **kw):
+        grids.append(tuple(psi.shape[1:]))
+        return inverse(psi, *args, **kw)
+
+    def timed_shot(*args, **kw):
+        t0 = time.perf_counter()
+        screenshot(*args, **kw)
+        shots.append(time.perf_counter() - t0)
+
+    with patched((kernels, "inverse_fixed_point", recorded), (viz, "save_screenshot", timed_shot)):
+        text, secs, _, counts = run_cli(torch, kernels, argv, phase, viewer=Probed)
+    loader_check(text, False, phase)
+    log(phase, f"frames {[round(s, 4) for s in secs]} s (CLI); screenshots {shots} s; "
+        f"kernel C's grids {sorted(set(grids))}")
+    mesh = sio.load_mesh_vtk(os.path.join(scene, "meshes", "mesh_0001.vtk"))
+    check(mesh.colors is not None and mesh.colors.shape == mesh.vertices.shape,
+          f"{phase}: the logged mesh carries no colours")
+    check(served and [p["name"] for p in served[-1]["panels"]] == ["phi_global", "phi_n(psi)"]
+          + (["phi_n", "phi_global(psi_inv)"] if has_mpl else []) and served[-1]["color"],
+          f"{phase}: /state.json did not serve the panels")
+    log(phase, f"/state.json served {len(served)} updates, panels "
+        f"{[p['name'] for p in served[-1]['panels']]}, {len(served[-1]['panels'][0]['v']) // 9} "
+        f"triangles in the first, a colour frame; coloured mesh {mesh.n_triangles} triangles")
+    if has_mpl:
+        check(os.path.exists(os.path.join(scene, "screenshots", "frame_0001.png")),
+              f"{phase}: no screenshot")
+    check((DIM,) * 3 in grids, f"{phase}: kernel C never ran at full resolution")
+    return counts
+
+
+def cli_gate(torch, kernels, root, phase):
+    """Run (c): tools/validate_torch_cli_scene.py on the articulated scene,
+    20 frames at 64^3 (the preset's compositive keys and NEW_SURFACE_GATE),
+    budgets 2.2 / 1.5 voxels. Returns the run's launch counts."""
+    gate = tool("validate_torch_cli_scene")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = gate.main([os.path.join(root, "G"), "--generate", "--frames", str(GATE_FRAMES),
+                        "--dim", str(GATE_DIM), "--device", DEVICE])
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(phase, f"cli: {line}")
+    loader_check(out.getvalue(), False, phase)
+    res = json.loads(lines[-1])
+    rows = res["per_frame"]
+    log(phase, "canonical RMSE (voxels) per frame: "
+        f"{[r.get('rmse_canonical_vox') for r in rows]}")
+    log(phase, f"live RMSE (voxels) per frame: {[r.get('rmse_live_vox') for r in rows]}")
+    log(phase, f"budgets {res['budget_canonical_vox']} / {res['budget_live_vox']} voxels over "
+        f"{res['frames']} logged frames: ok {res['ok']}; launch counts {counts}")
+    check(rc == 0 and res["ok"], f"{phase}: the CLI gate failed")
+    return counts
+
+
+def run_cli_phase(torch, kernels, ini):
+    """The cli phase: sobfu_tpu_torch.cli.main in this process on scenes
+    written to a temporary directory, (a) resume, (b) the visual flags,
+    (c) the gate. Returns the launch counts of its CLI runs."""
+    import tempfile
+
+    from sobfu_tpu_torch import native
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "matplotlib")}
+    log("cli", f"packages: {have}; native runtime: "
+        + ("built" if native.available() else f"not built ({native._build_error})"))
+    with tempfile.TemporaryDirectory(prefix="sobfu_cli_") as root:
+        runs = cli_resume(torch, kernels, root, "cli")
+        cli_half_res_checkpoint(torch, ini, root, "cli")
+        runs.append(cli_visual(torch, kernels, root, "cli viz"))
+        runs.append(cli_gate(torch, kernels, root, "cli gate"))
+    return runs
+
+
 def top_level_clock(*targets):
     """A StageClock that times only the calls not nested in another timed
     call, so that its stages add up to at most the frame."""
@@ -1448,6 +1799,7 @@ def main(argv=None) -> int:
                             ("gd_multi", "warp", "gd_iteration", "compose_weight",
                              "inverse_fixed_point")))
     runs.extend(run_multiscene_phase(torch, kernels))
+    runs.extend(run_cli_phase(torch, kernels, ini))
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}

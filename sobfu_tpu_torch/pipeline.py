@@ -161,8 +161,10 @@ class SobFusion:
         return d.to(self.device)
 
     # -- per-frame entry (reference sob_fusion.cpp:71-145) -------------------
-    def __call__(self, depth) -> bool:
-        """Process one depth frame (mm; numpy uint16 or a torch tensor)."""
+    def __call__(self, depth, image=None) -> bool:
+        """Process one depth frame (mm; numpy uint16 or a torch tensor).
+        image, the colour frame, is accepted and unused, as in
+        ``sobfu_tpu.pipeline.SobFusion.__call__``."""
         p = self.params
         if p.verbosity > 0:
             print(f"--- FRAME NO. {self.frame_counter} ---")

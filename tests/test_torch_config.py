@@ -56,12 +56,18 @@ def test_tpu_extension_keys_parse_the_same(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port never imports jax or sobfu_tpu (whose __init__ pulls in jax)."""
+    """The port never imports jax or sobfu_tpu (whose __init__ pulls in jax),
+    nor does the port's CLI gate tool."""
     code = (
-        "import sys, sobfu_tpu_torch, sobfu_tpu_torch.cli, sobfu_tpu_torch.ops.kernels, "
-        "sobfu_tpu_torch.mc, sobfu_tpu_torch.io, sobfu_tpu_torch.core, "
-        "sobfu_tpu_torch.pyramid, sobfu_tpu_torch.solver, sobfu_tpu_torch.pipeline, "
-        "sobfu_tpu_torch.ops._build, sobfu_tpu_torch.parallel\n"
+        "import sys, importlib.util, sobfu_tpu_torch, sobfu_tpu_torch.cli, "
+        "sobfu_tpu_torch.ops.kernels, sobfu_tpu_torch.mc, sobfu_tpu_torch.io, "
+        "sobfu_tpu_torch.core, sobfu_tpu_torch.pyramid, sobfu_tpu_torch.solver, "
+        "sobfu_tpu_torch.pipeline, sobfu_tpu_torch.ops._build, sobfu_tpu_torch.parallel, "
+        "sobfu_tpu_torch.utils.checkpoint, sobfu_tpu_torch.viz, sobfu_tpu_torch.viewer, "
+        "sobfu_tpu_torch.native\n"
+        "spec = importlib.util.spec_from_file_location('gate', "
+        "'tools/validate_torch_cli_scene.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sobfu_tpu' or m.startswith('sobfu_tpu.')]\n"
         "assert not bad, bad\n"
@@ -89,9 +95,11 @@ def test_cuda_device_without_card_raises():
 @pytest.mark.parametrize("flag", ["--enable-viz", "--enable-viz-detailed", "--live-viz",
                                   "--color-mesh", "--checkpoint=x", "--resume=x"])
 def test_cli_unported_flags_exit_with_error(flag, capsys):
+    """The six flags that once exited "not ported yet" are ported: each is
+    parsed and main goes on to read the ini and then the scene, which here
+    does not exist."""
     from sobfu_tpu_torch import cli
 
-    with pytest.raises(SystemExit) as e:
-        cli.main(["scene", "params.ini", flag])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(FileNotFoundError, match="should contain 'color' and 'depth'"):
+        cli.main(["no_scene", INIS[0], flag])
+    assert "not ported" not in capsys.readouterr().err

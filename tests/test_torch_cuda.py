@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card: each against its plain torch version, and
-the solver (single-level, pyramid and compositive) on the card against its
-goldens.
+"""The CUDA kernels on the card: each against its plain torch version, the
+solver (single-level, pyramid and compositive) on the card against its
+goldens, and a checkpoint resumed on the card, through SobFusion and
+through the CLI, against an uninterrupted run, bit for bit.
 
 Every test here needs a CUDA card (marker ``cuda``) and skips without one.
 The file imports neither jax nor sobfu_tpu, so it runs where only torch is
@@ -633,3 +634,93 @@ def test_inverse_kernel_at_the_main_paths_shapes(cuda, dims, K, iters, warm):
     got = kernels.inverse_fixed_point(psi, iters, K, init)
     want = kernels.inverse_fixed_point_plain(psi, iters, K, init)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def _scene_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_scene", os.path.join(ROOT, "tools", "make_synthetic_scene.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pipeline_params(dim, **extra):
+    from sobfu_tpu_torch.config import Intr, Params, translation_pose
+
+    p = Params()
+    p.volume_dims, p.volume_size = (dim,) * 3, (0.4, 0.4, 0.4)
+    p.volume_pose = translation_pose((-0.2, -0.2, 0.25))
+    p.intr = Intr(60.0, 60.0, 31.5, 23.5)
+    p.tsdf_trunc_dist, p.eta = 6.0 * 0.4 / dim, 3.0 * 0.4 / dim
+    p.bilateral_kernel_size, p.start_frame = 5, 1
+    p.max_iter, p.max_update_norm, p.alpha, p.w_reg, p.warp_window = 16, 1e-6, 0.1, 0.2, 2
+    for k, v in extra.items():
+        setattr(p, k, v)
+    return p
+
+
+# the single-level window slice at 32^3, and the pyramid's no-log loop with
+# the half-res inverse carry at 64^3 (E on the 32^3 coarse level)
+CHECKPOINT_CASES = [
+    (32, {}),
+    (64, dict(pyramid_levels=2, momentum=0.95, alpha=0.05, max_iter=64, max_update_norm=4e-3,
+              stall_window=16, stall_rel=1e-2, inv_coarse=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,extra", CHECKPOINT_CASES, ids=["32", "64-half-res"])
+def test_checkpoint_resume_bitwise_on_card(cuda, tmp_path, dim, extra):
+    """SobFusion on the card: 3 frames + save + load + 3 frames equal 6
+    straight, every key of the checkpoint bit for bit."""
+    from sobfu_tpu_torch.pipeline import SobFusion
+    from sobfu_tpu_torch.utils import checkpoint
+
+    render = _scene_tool().render_prims_depth
+    frames = [render(48, 64, 60.0, 60.0, 31.5, 23.5, [((0.005 * i, 0.0, 0.45), 0.08)])
+              for i in range(6)]
+    params = _pipeline_params(dim, **extra)
+    runs = [SobFusion(params, device="cuda") for _ in range(3)]
+    for f in runs:
+        f.need_inv_warps = False
+    straight, first, resumed = runs
+    for d in frames:
+        straight(d)
+    for d in frames[:3]:
+        first(d)
+    path = str(tmp_path / "state.npz")
+    checkpoint.save_checkpoint(path, first)
+    checkpoint.load_checkpoint(path, resumed)
+    assert resumed.psi.data.device.type == "cuda"
+    for d in frames[3:]:
+        resumed(d)
+    a, b = checkpoint.state_dict(straight), checkpoint.state_dict(resumed)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+    half = (3,) + (dim // 2,) * 3
+    assert (a["psi_inv"].shape == half) == ("inv_coarse" in extra)
+
+
+@pytest.mark.cuda
+def test_cli_checkpoint_resume_on_card(cuda, tmp_path, capsys):
+    """python -m sobfu_tpu_torch ... --device cuda --checkpoint / --resume:
+    2 + resume + 2 frames give the checkpoint of 4 straight, bit for bit."""
+    from sobfu_tpu_torch import cli
+
+    scene = tmp_path / "scene"
+    _scene_tool().main([str(scene), "--frames", "4", "--dim", "32", "--width", "64",
+                        "--height", "48"])
+    ini = str(scene / "params.ini")
+    a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    base = [str(scene), ini, "--device", "cuda", "--enable-log", "--checkpoint"]
+    assert cli.main(base + [a]) == 0
+    assert cli.main(base + [b, "--max-frames", "2"]) == 0
+    capsys.readouterr()
+    assert cli.main(base + [b, "--resume", b]) == 0
+    assert "resumed at frame 2" in capsys.readouterr().out
+    with np.load(a) as x, np.load(b) as y:
+        assert sorted(x.files) == sorted(y.files)
+        assert all(x[k].tobytes() == y[k].tobytes() for k in x.files)
