@@ -120,6 +120,32 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 compositive keys and NEW_SURFACE_GATE): every frame inside
                 2.2 voxels canonical and 1.5 voxels live RMSE; the curves
                 are printed
+ 13. sharded    the z-sharded path (sobfu_tpu_torch.parallel.zshard) on
+                meshes that name the card several times. (a) Kernel A's slab
+                form (gd_iteration_slab) on CUDA tensors, each slab against
+                its plain version (atol 1e-5) and against the whole-volume A
+                launch bit for bit: 128^3, 7 taps, K=2, momentum 0.95 in 2,
+                4 and 8 slabs (halos cut by _halo_exchange_z), 64^3 exact
+                (live whole) and K=1 in 4, (12, 16, 20) in 2; its times at
+                128^3 / 4 slabs per slab and per iteration of GdSlabLoop
+                beside the whole-volume A. (b) make_sharded_estimate_psi on
+                make_mesh(n_z=4) at 128^3, fused, momentum 0.9, warm
+                inverse, K=2, 40 iterations, against solver.estimate_psi:
+                equal iterations, psi and tnp within 2e-5, the max norm
+                within rtol 1e-4, |d psi_inv| <= 0.05; pyramid_levels=2
+                against estimate_psi_pyramid (coarse cap 12): fine
+                iterations within max(4, 15%), energy <= 1.05x; fine_window=1
+                against estimate_psi_compositive (psi within 8 ulps of the
+                largest coordinate). (c) make_frame_step over a (2 scene x 4
+                z) mesh at 64^3, 4 scenes, 8 iterations, against the
+                one-device step: within 1e-5 in __graft_entry__.py's parity
+                configuration (one level), the dry-run configuration's seams
+                printed; then 256^3, 2 drifting spheres, 3 frames (seconds,
+                iterations, host reads, halo bytes per iteration, a
+                profiled frame's busy share, peak memory). (d) one 512^3
+                frame on make_mesh(n_z=8), MAX_ITER 32 a level: 0
+                whole-volume gathers, peak memory. Only A's slab form may
+                launch on these paths
 The launch counts of each path are zeroed just before it and read just
 after; kernel A's count is the iterations that ran on the card (the
 device's counter), its launches after a stop are printed apart. The last
@@ -134,6 +160,10 @@ nvidia-smi line and {"ok": true, "device": {...}}.
     python3 chip_smoke.py --kernels
 
 stops after phase 4 (the build, the kernel checks, the goldens).
+
+    python3 chip_smoke.py --sharded
+
+runs the build and phase 13 alone.
 
     python3 chip_smoke.py --probe DIR
 
@@ -1735,6 +1765,462 @@ def probe(torch, kernels, ini, out):
         json.dump(result, f, indent=1)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the z-sharded solve and frame step on a mesh of one card
+# ---------------------------------------------------------------------------
+
+
+def slab_inputs(torch, d, n_z, K):
+    """The operands of kernel A's slab form for each of n_z slabs of the
+    whole-volume operands d (gd_inputs, with a scene axis): psi, tnp, vel and
+    tg with their halo rows filled by the halo exchange, live the slab's halo
+    form (or the whole volume for K None). Returns [(args, z_base, live_z0)]."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    dev = d["psi"].device
+    H = zshard.H
+    devs = [dev] * n_z
+    pad = {k: zshard._halo_exchange_z(zshard._split(d[k], devs), H)
+           for k in ("psi", "tnp", "vel", "tg", "live")}
+    Zl = d["tg"].shape[-3] // n_z
+    out = []
+    for j in range(n_z):
+        live, lz0 = (d["live"], 0) if K is None else (pad["live"][j], j * Zl - H)
+        out.append(((pad["psi"][j], pad["tnp"][j], pad["vel"][j], pad["tg"][j], live),
+                    j * Zl, lz0))
+    return out
+
+
+def check_gd_slab(torch, kernels, solver):
+    """Phase 13 (a): kernel A's slab form on CUDA tensors, each slab against
+    its plain version (atol 1e-5 on the state, rtol 1e-5 on the norm and the
+    energy) and against the whole-volume A launch bit for bit (psi', tnp',
+    vel' of the slab's rows, the max norm over the slabs): 128^3, 7 taps,
+    K=2, momentum 0.95 in 2, 4 and 8 slabs; the exact mode (live whole) and
+    K=1 at 64^3 in 4 slabs; (12, 16, 20), K=2, 5 taps in 2 slabs. Then the
+    times at 128^3 / 4 slabs: one slab a call, and an iteration of
+    kernels.GdSlabLoop (4 launches and the halo exchange), beside the
+    whole-volume A. Returns the report row."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    worst = 0.0
+    for dims, n_taps, K, mu, splits in (((DIM,) * 3, 7, 2, 0.95, (2, 4, 8)),
+                                        ((DIM // 2,) * 3, 7, None, 0.9, (4,)),
+                                        ((DIM // 2,) * 3, 7, 1, None, (4,)),
+                                        ((12, 16, 20), 5, 2, 0.9, (2,))):
+        d = gd_inputs(torch, dims, 31, 1.8 if K else 3.5, scenes=1)
+        taps = torch.as_tensor(solver.sobolev_filter_1d(n_taps, LAMBDA), device=d["psi"].device)
+        whole = kernels.gd_iteration(*(d[k][0] for k in ("psi", "tnp", "vel", "tg", "live")),
+                                     taps, 0.05, 0.2, mu, K)
+        for n_z in splits:
+            Zl = dims[0] // n_z
+            bit, err, rel, mx = True, 0.0, 0.0, []
+            for args, zb, lz0 in slab_inputs(torch, d, n_z, K):
+                got = kernels.gd_iteration_slab(*args, taps, 0.05, 0.2, mu, K, zb, dims[0], lz0,
+                                                with_energy=True)
+                ref = kernels.gd_iteration_slab_plain(*args, taps, 0.05, 0.2, mu, K, zb, dims[0],
+                                                      lz0, with_energy=True)
+                err = max(err, max(max_abs(g, r) for g, r in zip(got[:3], ref[:3])))
+                rel = max(rel, max(abs(float(g[0]) - float(r[0])) / max(abs(float(r[0])), 1e-30)
+                                   for g, r in zip(got[3:], ref[3:])))
+                rows = slice(zb, zb + Zl)
+                bit = bit and bitwise(got[0][0], whole[0][:, rows]) and bitwise(
+                    got[1][0], whole[1][rows]) and (mu is None or bitwise(got[2][0],
+                                                                         whole[2][:, rows]))
+                mx.append(float(got[3][0]))
+            bit = bit and max(mx) == float(whole[3])
+            log("sharded", f"gd_iteration_slab {'x'.join(map(str, dims))} taps={n_taps} K={K} "
+                f"momentum={mu} in {n_z} slabs: max|d| from the plain version {err:.3e}, rel "
+                f"d(max_sq, energy) {rel:.3e}; bit for bit with the whole-volume A launch {bit}")
+            check(err <= 1e-5 and rel <= 1e-5, "gd_iteration_slab disagrees with its plain version")
+            check(bit, "gd_iteration_slab differs from the whole-volume A launch")
+            worst = max(worst, err)
+    # the times at 128^3 in 4 slabs, K=2, momentum 0.95
+    d = gd_inputs(torch, (DIM,) * 3, 31, 1.8, scenes=1)
+    taps = torch.as_tensor(solver.sobolev_filter_1d(TAPS, LAMBDA), device=d["psi"].device)
+    args, zb, lz0 = slab_inputs(torch, d, 4, 2)[1]
+    call = (*args, taps, 0.05, 0.2, 0.95, 2, zb, DIM, lz0)
+    times = timed(lambda: kernels.gd_iteration_slab(*call))
+    plain = plain_ms(lambda: kernels.gd_iteration_slab_plain(*call))
+    devs = [d["psi"].device] * 4
+    psi_l, tnp_l = zshard._split(d["psi"], devs), zshard._split(d["tnp"], devs)
+    tg_p = zshard._halo_exchange_z(zshard._split(d["tg"], devs), zshard.H)
+    live_p = zshard._halo_exchange_z(zshard._split(d["live"], devs), zshard.H)
+    loop = kernels.GdSlabLoop(psi_l, tnp_l, tg_p, live_p, taps, 0.05, 0.2, 0.95, 2, -1.0, DIM)
+    on = np.ones(1, bool)
+    n = kernels.GD_CHUNK
+    it = {"ms": cuda_ms(lambda: loop.run(n, on), reps=4) / n,
+          "device_ms": device_ms(lambda: loop.run(n, on), reps=4) / n}
+    whole = timed_chunks(kernels, "gd_iteration", d["psi"], d["tnp"], d["tg"], d["live"], taps,
+                         0.05, 0.2, 0.95, 2)
+    per_it = loop.halo_bytes // loop.iterations
+    log("sharded", f"gd_iteration_slab at 128^3 / 4 slabs, K=2, momentum 0.95: one slab a call "
+        f"{times['ms']:.4f} ms, {times['device_ms']:.4f} ms device (plain {plain:.4f} ms); an "
+        f"iteration of GdSlabLoop (4 launches, {per_it} bytes of halo rows exchanged) "
+        f"{it['ms']:.4f} ms, {it['device_ms']:.4f} ms device; the whole-volume A an iteration "
+        f"through GdLoop {whole['ms']:.4f} ms, {whole['device_ms']:.4f} ms device")
+    out = kernels.gd_iteration_slab(*call)
+    Zl = DIM // 4
+    return row(worst, times, plain, slab_bytes(args, out, TAPS, 2),
+               Zl * DIM * DIM * gd_ops(TAPS, True, True, False))
+
+
+def slab_bytes(args, out, n_taps, K) -> int:
+    """The bytes one launch of A's slab form must move on a slab away from
+    the volume's ends: the rows it reads — psi and tnp at the dU positions
+    (the slab's rows and r = n_taps // 2 on either side) and one row beyond
+    for the differences, Zl + 2(r + 1); tg at the dU positions, Zl + 2r; vel
+    at the slab's own rows (with momentum); live the slab's rows and K on
+    either side (the whole volume for the exact warp, K None) — and its
+    own-row outputs. The halo rows the buffers hold past these are never
+    read."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    psi, tnp, vel, tg, live = args
+    S, _, rows, Y, X = psi.shape
+    Zl, r = rows - 2 * zshard.H, n_taps // 2
+    read = 4 * (Zl + 2 * (r + 1)) + Zl + 2 * r + (3 * Zl if out[2] is not None else 0)
+    read += live.shape[-3] if K is None else Zl + 2 * K
+    return S * Y * X * psi.element_size() * read + nbytes(*out[:3])
+
+
+def sphere_pair(torch, dims, shift_vox):
+    """(psi, tg, wg, tn, wn) on the card: tests/test_sharding.py's scene at
+    dims, the live sphere moved along -x by shift_vox voxels."""
+    from sobfu_tpu_torch import fields
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dev = torch.device(DEVICE)
+    size = 0.125
+    vs = size / dims[2]
+    c = size / 2
+    radius = 0.01 * dims[2] / 32  # the test's 0.01 m at 32^3, scaled with the grid
+    tg, wg = init_sphere(dims, (vs,) * 3, (c, c, c), radius, 10 * vs, 2 * vs, device=dev)
+    tn, wn = init_sphere(dims, (vs,) * 3, (c - shift_vox * vs, c, c), radius, 10 * vs, 2 * vs,
+                         device=dev)
+    return fields.identity_field(dims, device=dev), tg, wg, tn, wn
+
+
+def sharded_counts(kernels, phase, counts):
+    """Only A's slab form ran on the sharded path."""
+    log(phase, f"launch counts {counts}; host reads {kernels.host_reads['gd_iteration_slab']}, "
+        f"launches after the stop {kernels.empty_launches['gd_iteration_slab']}")
+    check(counts["gd_iteration_slab"] > 0, f"{phase}: kernel gd_iteration_slab was never launched")
+    others = {k: v for k, v in counts.items() if k != "gd_iteration_slab" and v}
+    check(not others, f"{phase}: the sharded path launched {others}")
+
+
+def check_sharded_solve(torch, kernels, solver):
+    """Phase 13 (b): make_sharded_estimate_psi on make_mesh(n_z=4,
+    devices=[cuda]*4) at 128^3 in the production keys (fused, momentum 0.9,
+    warm inverse, K=2, 7 taps; 40 iterations) against solver.estimate_psi on
+    the card (the bounds of test_sharded_production_config_matches_single_
+    chip); then pyramid_levels=2 against solver.estimate_psi_pyramid (the
+    seam bounds of test_sharded_pyramid_seam_cost_bounded), then
+    fine_window=1. Returns the launch counts of the sharded runs."""
+    from sobfu_tpu_torch.parallel import make_mesh, make_sharded_estimate_psi
+
+    dev = torch.device(DEVICE)
+    dims = (DIM,) * 3
+    taps = solver.sobolev_filter_1d(TAPS, LAMBDA)
+    mesh = make_mesh(n_z=4, devices=[dev] * 4)
+    psi, tg, wg, tn, wn = sphere_pair(torch, dims, 1.5)
+    args = (0.1, 0.4, 40, -1.0)
+    ref = solver.estimate_psi(psi, tg, wg, tn, wn, taps, *args, inverse_iters=48, warp_window=2,
+                              momentum=0.9)
+    fn = make_sharded_estimate_psi(mesh, inverse_iters=12, warp_window=2, fused=True,
+                                   taps_static=tuple(taps), momentum=0.9, warm_inverse=True)
+    fn(psi, tg, wg, tn, wn, taps, *args, ref.psi_inv)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(psi, tg, wg, tn, wn, taps, *args, ref.psi_inv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = [dict(kernels.launch_counts)]
+    d_psi, d_tnp = max_abs(out[0], ref.psi), max_abs(out[2], ref.tsdf_n_psi)
+    d_inv = max_abs(out[1], ref.psi_inv)
+    rel = abs(float(out[7]) - ref.max_norm) / ref.max_norm
+    log("sharded", f"(b) 128^3 on 4 slabs, fused, momentum 0.9, warm inverse, K=2: {dt:.4f} s; "
+        f"iterations {int(out[6])} / {ref.iters} unsharded; max|d psi| {d_psi:.3e}, max|d tnp| "
+        f"{d_tnp:.3e}, rel d(max norm) {rel:.3e}, max|d psi_inv| {d_inv:.3e}; halo bytes "
+        f"{mesh.halo_bytes} ({mesh.loop_halo_bytes // max(mesh.loop_iterations, 1)} an "
+        f"iteration of the loop), whole-volume gathers {mesh.gathers}")
+    sharded_counts(kernels, "sharded (b)", counts[-1])
+    check(int(out[6]) == ref.iters and d_psi <= 2e-5 and d_tnp <= 2e-5 and rel <= 1e-4
+          and d_inv <= 0.05, "sharded (b): the sharded solve disagrees with the unsharded one")
+    check(mesh.gathers == 0, "sharded (b): the windowed solve gathered a whole volume")
+
+    # the pyramid: seams against the single-device pyramid (JAX's test runs
+    # 256 fine iterations at 32^3; a 128^3 fine level needs more to converge)
+    psi, tg, wg, tn, wn = sphere_pair(torch, dims, 2.0)
+    max_iter = 1024
+    args = (0.1, 0.3, max_iter, 2e-3)
+    opts = dict(warp_window=3, momentum=0.9, inverse_iters=2)
+    ref = solver.estimate_psi_pyramid(psi, tg, wg, tn, wn, taps, *args, levels=2,
+                                      coarse_max_iter=12, **opts)
+    kernels.reset_launch_counts()
+    shd = make_sharded_estimate_psi(mesh, pyramid_levels=2, coarse_max_iter=12, fused=True,
+                                    taps_static=tuple(taps), **opts)(psi, tg, wg, tn, wn, taps,
+                                                                     *args)
+    counts.append(dict(kernels.launch_counts))
+    e_ref = float(solver.data_energy(tg, ref.tsdf_n_psi))
+    e_shd = float(solver.data_energy(tg, shd[2]))
+    log("sharded", f"(b) pyramid 2 levels, K=3, coarse cap 12, thresh 2e-3, MAX_ITER "
+        f"{max_iter}: iterations {int(shd[6])} sharded / {ref.iters} single-device (bound: "
+        f"within {max(4, int(0.15 * ref.iters))}; the fine level converged: sharded "
+        f"{int(shd[6]) < max_iter + 12}, single-device {ref.iters < max_iter + 12}); data "
+        f"energy {e_shd:.6e} / {e_ref:.6e} (ratio {e_shd / e_ref:.4f}, bound 1.05)")
+    sharded_counts(kernels, "sharded (b) pyramid", counts[-1])
+    check(int(shd[6]) < max_iter + 12 and ref.iters < max_iter + 12,
+          "sharded (b): a pyramid's fine level ran to MAX_ITER without converging")
+    check(abs(int(shd[6]) - ref.iters) <= max(4, int(0.15 * ref.iters))
+          and e_shd <= e_ref * 1.05 + 1e-6, "sharded (b): the pyramid's seams cost too much")
+
+    # fine_window: the compositive fine level from a smooth sub-voxel psi0
+    # (tests/test_sharding.py's: it plays the upsampled coarse field)
+    psi, tg, wg, tn, wn = sphere_pair(torch, dims, 1.5)
+    zz = torch.linspace(0.0, np.pi, DIM, device=dev)
+    psi = psi + 0.6 * torch.sin(zz)[None, :, None, None]
+    args = (0.1, 0.4, 40, -1.0)
+    ref = solver.estimate_psi_compositive(psi, tg, wg, tn, wn, taps, *args, None,
+                                          inverse_iters=8, warp_window=1, total_window=2,
+                                          momentum=0.9)
+    kernels.reset_launch_counts()
+    shd = make_sharded_estimate_psi(mesh, inverse_iters=8, warp_window=2, fine_window=1,
+                                    momentum=0.9, fused=True, taps_static=tuple(taps))(
+        psi, tg, wg, tn, wn, taps, *args)
+    counts.append(dict(kernels.launch_counts))
+    d_psi, d_tnp = max_abs(shd[0], ref.psi), max_abs(shd[2], ref.tsdf_n_psi)
+    # psi holds absolute coordinates: 8 ulps of the largest (tests/test_sharding.py
+    # holds 2e-5 at 32^3, 10.5 of its ulps). The first slab's coordinates
+    # shifted by +K into its halo frame (_sample_window_local) round where
+    # they cross a power of two; the other slabs' shifts are exact.
+    bound = 8 * float(np.spacing(np.float32(DIM - 1)))
+    log("sharded", f"(b) fine_window=1: iterations {int(shd[6])} / {ref.iters} single-device "
+        f"compositive; max|d psi| {d_psi:.3e} (bound {bound:.3e}), max|d tnp| {d_tnp:.3e}")
+    sharded_counts(kernels, "sharded (b) fine_window", counts[-1])
+    check(int(shd[6]) == ref.iters and d_psi <= bound and d_tnp <= 2e-5,
+          "sharded (b): the fine_window solve disagrees with the single-device compositive one")
+    return counts
+
+
+# phase 13's grids: the parity with the one-device step, the drifting pair,
+# the frame on 8 slabs
+PARITY_DIM, DRIFT_DIM, BIG_DIM = 64, 256, 512
+# __graft_entry__.py's dry-run configuration (fold_xmats picks a TPU layout)
+DRYRUN = dict(inverse_iters=4, warp_window=2, fused=True, momentum=0.95, warm_inverse=True,
+              pyramid_levels=2, stall_window=8, stall_rel=1e-2, fold_xmats=True,
+              axis_aligned=True)
+
+
+def parity_scenes(torch, dims, S):
+    """__graft_entry__.py's parity data at dims: per scene a sphere of 0.06
+    m a little off centre as the canonical, weights 1, and a sloped wall of
+    depth in front of a 64x48 camera; (state, dists, vol2cam, scalars)."""
+    from sobfu_tpu_torch import fields, solver
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dev = torch.device(DEVICE)
+    size = 0.25
+    vs = size / dims[2]
+    trunc, eta = 10 * vs, 2 * vs
+    c = size / 2
+    tg = torch.stack([init_sphere(dims, (vs,) * 3, (c - (0.5 + 0.5 * s) * vs, c, c), 0.06, trunc,
+                                  eta, device=dev)[0] for s in range(S)])
+    H, W = 48, 64
+    uu = np.arange(W, dtype=np.float32)[None, :] / W
+    dists1 = 0.28 + 0.08 * uu * np.ones((H, 1), np.float32)
+    dists = torch.as_tensor(np.stack([dists1 + 0.01 * s for s in range(S)]), device=dev)
+    v2c = np.eye(4, dtype=np.float32)
+    v2c[:3, 3] = (-size / 2, -size / 2, 0.2)
+    psi = fields.identity_field(dims, device=dev).expand(S, -1, -1, -1, -1).contiguous()
+    state = (psi, tg, torch.ones_like(tg), psi.clone())
+    scalars = ((40.0, 40.0, W / 2, H / 2), (vs,) * 3, trunc, eta, 64.0,
+               solver.sobolev_filter_1d(7, 0.1), 0.05, 0.2, 8, -1.0)
+    return state, dists, np.broadcast_to(v2c, (S, 4, 4)), scalars
+
+
+def drifting_pair(torch, dims, n_frames):
+    """Two scenes at dims: multiscene_stream's camera and 0.05 m sphere,
+    scene 0 drifting +x and scene 1 +y by 0.6 voxel a frame; (state, the
+    depth batches of frames 0..n_frames, vol2cam, scalars)."""
+    from sobfu_tpu_torch import fields, solver
+    from sobfu_tpu_torch.tsdf import integrate_dists
+
+    dev = torch.device(DEVICE)
+    size = 0.25
+    vs = size / dims[2]
+    trunc, eta = 8 * vs, 3 * vs
+    H, W, f = 48, 64, 40.0
+    intr = (f, f, W / 2 - 0.5, H / 2 - 0.5)
+    vol2cam = np.eye(4, dtype=np.float32)
+    vol2cam[:3, 3] = (-size / 2, -size / 2, 0.15)
+    z_cam, r_sph = size / 2 + 0.15, 0.05
+    zero = torch.zeros(dims, dtype=torch.float32, device=dev)
+    d0 = torch.as_tensor(render_dists(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
+    tg1, wg1 = integrate_dists(zero, zero, d0, vol2cam, intr, (vs,) * 3, trunc, eta)
+    psi1 = fields.identity_field(dims, device=dev)
+    state = (psi1.expand(2, -1, -1, -1, -1).contiguous(), tg1.expand(2, -1, -1, -1).contiguous(),
+             wg1.expand(2, -1, -1, -1).contiguous(), psi1.expand(2, -1, -1, -1, -1).contiguous())
+    step = 0.6 * vs
+    frames = [torch.as_tensor(np.stack([
+        render_dists(H, W, *intr, (d[0] * step * i, d[1] * step * i, z_cam), r_sph)
+        for d in ((1, 0), (0, 1))]), device=dev) for i in range(n_frames + 1)]
+    scalars = (intr, (vs,) * 3, trunc, eta, 64.0, solver.sobolev_filter_1d(7, 0.1), 0.1, 0.2,
+               96, 1e-3)
+    return state, frames, np.broadcast_to(vol2cam, (2, 4, 4)), scalars
+
+
+def check_sharded_frame_step(torch, kernels):
+    """Phase 13 (c): make_frame_step over a (2 scene x 4 z) mesh of one card.
+    At 64^3, 4 scenes, 8 iterations, __graft_entry__.py's parity data, in
+    the configuration of its parity check (the dry-run configuration with
+    one pyramid level and no stall stop) against the one-device
+    make_frame_step on the card: max |d psi|, |d tsdf| and |d psi_inv|
+    under 1e-5, printed beside MULTICHIP_r05.json's 0 / 0 / 5.96e-8 (JAX's
+    sharded step against its single-chip solve). Then the dry-run
+    configuration itself (2 levels, stall 8): the sharded pyramid upsamples
+    per slab, so its seams' differences from the one-device step are
+    printed, not bounded (the CPU tests hold it to JAX's sharded step); it is
+    held to the same (2 x 4) mesh on CPU devices (the slab form's plain
+    version) instead: equal iterations, psi and psi_inv within 8 ulps of the
+    largest coordinate, tsdf and weight within 1e-5. Then at 256^3, 2 scenes drifting
+    +x and +y, 3 frames after a warm-up frame: per frame the seconds, the
+    iterations per level and scene, the host reads, the halo bytes per
+    iteration; a profiled frame's busy share and the peak memory. Returns
+    the launch counts of the sharded runs."""
+    from sobfu_tpu_torch.parallel import make_frame_step, make_mesh
+
+    dev = torch.device(DEVICE)
+    mesh = make_mesh(n_z=4, n_scene=2, devices=[dev] * 8)
+    dims = (PARITY_DIM,) * 3
+    state, dists, v2c, scalars = parity_scenes(torch, dims, 4)
+    taps_static = tuple(scalars[5])
+    counts = []
+    for label, cfg in (("the parity configuration (1 level, no stall)",
+                        dict(DRYRUN, pyramid_levels=1, stall_window=0)),
+                       ("the dry-run configuration (2 levels, stall 8)", DRYRUN)):
+        one = make_frame_step(dims, device=DEVICE, taps_static=taps_static, **cfg)
+        want = one(*state[:3], dists, v2c, *scalars, state[3])
+        shd = make_frame_step(dims, mesh=mesh, taps_static=taps_static, **cfg)
+        kernels.reset_launch_counts()
+        got = shd(*state[:3], dists, v2c, *scalars, state[3])
+        torch.cuda.synchronize()
+        counts.append(dict(kernels.launch_counts))
+        d = [max_abs(got[k], want[k]) for k in (0, 2, 1)]
+        log("sharded", f"(c) {'x'.join(map(str, dims))}, (2 x 4) mesh of one card, 4 scenes, 8 "
+            f"iterations a level, {label}: iterations {got[4].tolist()} / {want[4].tolist()} "
+            f"one-device; max|d psi| {d[0]:.3e}, max|d tsdf| {d[1]:.3e}, max|d psi_inv| "
+            f"{d[2]:.3e} (MULTICHIP_r05.json, JAX's sharded step in the parity configuration "
+            "against its single-chip solve: 0 / 0 / 5.96e-8)")
+        sharded_counts(kernels, "sharded (c)", counts[-1])
+        check(got[4].tolist() == want[4].tolist(), "sharded (c): the iterations differ")
+        check(all(bool(torch.isfinite(x).all()) for x in got[:4]), "sharded (c): non-finite state")
+        if cfg["pyramid_levels"] == 1:
+            check(max(d) <= 1e-5,
+                  "sharded (c): the sharded frame step disagrees with the one-device step")
+            continue
+        # the dry-run configuration against the same (2 x 4) mesh on CPU
+        # devices: the same seams, the plain version of the slab form. The
+        # pyramid's resamples (a mean over 2x2x2 cells, the trilinear
+        # upsample's matrix products) sum in another order on the card, so
+        # psi and psi_inv, which hold absolute coordinates, are held to 8
+        # ulps of the largest (3-4 measured at 64^3); tsdf and weight to 1e-5
+        cpu = make_frame_step(dims, mesh=make_mesh(n_z=4, n_scene=2, devices=["cpu"] * 8),
+                              taps_static=taps_static, **cfg)
+        t0 = time.perf_counter()
+        ref = cpu(*(x.cpu() for x in state[:3]), dists.cpu(), v2c, *scalars, state[3].cpu())
+        dt = time.perf_counter() - t0
+        e = [max_abs(got[k].cpu(), ref[k]) for k in (0, 2, 1, 3)]
+        ulps = 8 * float(np.spacing(np.float32(PARITY_DIM - 1)))
+        log("sharded", f"(c) {label} against the same mesh on CPU devices ({dt:.2f} s): "
+            f"iterations {ref[4].tolist()}; max|d psi| {e[0]:.3e}, max|d psi_inv| {e[2]:.3e} "
+            f"(bound {ulps:.3e}), max|d tsdf| {e[1]:.3e}, max|d weight| {e[3]:.3e} (bound 1e-5)")
+        check(got[4].tolist() == ref[4].tolist() and max(e[0], e[2]) <= ulps
+              and max(e[1], e[3]) <= 1e-5,
+              "sharded (c): the sharded frame step on the card disagrees with the CPU mesh")
+
+    dims = (DRIFT_DIM,) * 3
+    n_frames = 3
+    state, frames, v2c, scalars = drifting_pair(torch, dims, n_frames)
+    step = make_frame_step(dims, mesh=mesh, taps_static=taps_static, **DRYRUN)
+    step(*state[:3], frames[0], v2c, *scalars, state[3])  # warm-up, dropped
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for i in range(1, n_frames + 1):
+        prev = state
+        mesh.reset_counts()
+        reads0 = kernels.host_reads["gd_iteration_slab"]
+        t0 = time.perf_counter()
+        out = step(*state[:3], frames[i], v2c, *scalars, state[3])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        state = (out[0], out[2], out[3], out[1])
+        log("sharded", f"(c) {DRIFT_DIM}^3 frame {i}: {secs[-1]:.4f} s; coarse iterations "
+            f"{step.coarse_iters.tolist()}, fine {(out[4].numpy() - step.coarse_iters).tolist()}; "
+            f"{kernels.host_reads['gd_iteration_slab'] - reads0} host reads; halo bytes "
+            f"{mesh.halo_bytes} ({mesh.loop_halo_bytes // max(mesh.loop_iterations, 1)} an "
+            f"iteration of the loops over {mesh.loop_iterations} iterations); whole-volume "
+            f"gathers {mesh.gathers}")
+    counts.append(dict(kernels.launch_counts))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("sharded", f"(c) {DRIFT_DIM}^3: {2 * n_frames / sum(secs):.4f} scene-frames/s, peak memory "
+        f"{peak:.3f} GiB")
+    sharded_counts(kernels, f"sharded (c) {DRIFT_DIM}^3", counts[-1])
+    check(all(bool(torch.isfinite(x).all()) for x in state), "sharded (c): non-finite state")
+    run = dict(step=step, prev=prev, last=(frames[n_frames], v2c, scalars))
+    profile_step(torch, run, f"sharded (c) {DRIFT_DIM}^3")
+    return counts
+
+
+def check_sharded_512(torch, kernels):
+    """Phase 13 (d): one frame at 512^3 on make_mesh(n_z=8, devices=[cuda]*8),
+    windowed, in the dry-run configuration with MAX_ITER 32 a level (the
+    multiscene camera and sphere, one scene): the seconds, the iterations,
+    the peak memory and the whole-volume gathers, which must be 0. Returns
+    its launch counts."""
+    from sobfu_tpu_torch.parallel import make_frame_step, make_mesh
+
+    dev = torch.device(DEVICE)
+    dims = (BIG_DIM,) * 3
+    mesh = make_mesh(n_z=8, devices=[dev] * 8)
+    state, frames, v2c, scalars = drifting_pair(torch, dims, 1)
+    state = tuple(x[:1] for x in state)
+    scalars = scalars[:8] + (32,) + scalars[9:]
+    step = make_frame_step(dims, mesh=mesh, taps_static=tuple(scalars[5]), **DRYRUN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = step(*state[:3], frames[1][:1], v2c[:1], *scalars, state[3])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("sharded", f"(d) {BIG_DIM}^3 on 8 slabs of one card, one frame: {dt:.4f} s; iterations "
+        f"{out[4].tolist()} (coarse {step.coarse_iters.tolist()}); peak memory {peak:.3f} GiB; "
+        f"whole-volume gathers {mesh.gathers}; halo bytes {mesh.halo_bytes}")
+    sharded_counts(kernels, "sharded (d)", counts)
+    check(mesh.gathers == 0, "sharded (d): the windowed 512^3 frame gathered a whole volume")
+    check(all(bool(torch.isfinite(x).all()) for x in out[:4]), "sharded (d): non-finite state")
+    return [counts]
+
+
+def run_sharded_phase(torch, kernels, solver):
+    """Phase 13: (a) A's slab form, (b) the sharded solve, (c) the sharded
+    frame step, (d) 512^3 on 8 slabs. Returns (A's slab form's report row,
+    the launch counts of the sharded paths)."""
+    slab_row = check_gd_slab(torch, kernels, solver)
+    runs = check_sharded_solve(torch, kernels, solver)
+    runs += check_sharded_frame_step(torch, kernels)
+    runs += check_sharded_512(torch, kernels)
+    return slab_row, runs
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1745,6 +2231,8 @@ def main(argv=None) -> int:
                     help="run the drift witness and the compositive profiles instead")
     ap.add_argument("--kernels", action="store_true",
                     help="stop after the build, the kernel checks and the goldens")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run the build and phase 13 (sharded) alone")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1771,6 +2259,9 @@ def main(argv=None) -> int:
     ini = os.path.join(ROOT, "params", "params_umbrella.ini")
     if args.probe:
         probe(torch, kernels, ini, args.probe)
+        return 0
+    if args.sharded:
+        run_sharded_phase(torch, kernels, solver)
         return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
@@ -1800,6 +2291,8 @@ def main(argv=None) -> int:
                              "inverse_fixed_point")))
     runs.extend(run_multiscene_phase(torch, kernels))
     runs.extend(run_cli_phase(torch, kernels, ini))
+    results["gd_iteration_slab"], sharded = run_sharded_phase(torch, kernels, solver)
+    runs.extend(sharded)
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}

@@ -102,6 +102,25 @@
 // reads and writes its slice of every volume (base offsets s*N and s*3N),
 // so scene s of a batch equals a one-scene launch on it bit for bit. One
 // scene runs the kScenes = false instantiation, the scene index a constant.
+//
+// The slab form (sobfu_gd_slab_iteration, the kSlab instantiation) replaces
+// the z_base / z_global contract of fused_gd_iteration_db_padded (:1075,
+// body :848-850) and fused_gd_iteration_fold_padded (:1704), the per-shard
+// kernel of the z-sharded solve (sobfu_tpu/parallel/sharding.py:216, :249):
+// one z-slab of a z-sharded volume, its state with H = 4 halo rows of the
+// neighbouring slabs on either side. Each dU position's row is clamped
+// into the volume in global z (p + z_base against z_global) and read at
+// that row's place in the slab's buffer; the boundary masks, the voxel's
+// coordinate and the live gather's clamp are global too, and the gather's
+// global row is moved into live's rows as an integer (live is the slab and
+// its halo, or the whole volume for the exact warp). So each voxel
+// computes what the whole-volume launch computes for it, bit for bit, and
+// the launch's stop test reads the previous iteration's max norm of every
+// slab (the sharded solve's pmax). Bound: bytes, as A's (the slab's state,
+// tg and live with their halo rows in, its own rows out); a 32-row slab's
+// plan marches segments of 4 planes, so it recomputes more halo dU than A's
+// 16-plane segments. One launch per slab and iteration is the first form:
+// all slabs of a card in one launch, with a z_base per slab, is later work.
 #include "gd_step.cuh"
 
 namespace sobfu {
@@ -120,44 +139,60 @@ struct GdArgs {
   float thresh;
   MarchShape m;
   int copy_frozen;  // a frozen scene's blocks copy its state to the other buffer
+  // the slab form: prev_max holds [n_slabs][S] words, the max bits of every
+  // slab of the volume; live holds live_Z rows per scene
+  int n_slabs, live_Z;
 };
 
 // Whether scene s runs this launch and the iterations it has done; block 0
-// of the scene writes the next row.
+// of the scene writes the next row. kSlab: the norm tested is the max over
+// the n_slabs slabs of the volume (the sharded solve's pmax).
+template <bool kSlab>
 __device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) {
   const int v = a.ctl_in[s];
   const bool frozen = v < 0;
   const int c = frozen ? -v - 1 : v;
   bool on = !frozen;
-  if (on && a.prev_max != nullptr)
-    on = __fsqrt_rn(__uint_as_float(a.prev_max[s])) > a.thresh;
+  if (on && a.prev_max != nullptr) {
+    float mx = __uint_as_float(a.prev_max[s]);
+    if (kSlab)
+      for (int j = 1; j < a.n_slabs; ++j)
+        mx = nan_max(__uint_as_float(a.prev_max[j * gridDim.y + s]), mx);
+    on = __fsqrt_rn(mx) > a.thresh;
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl_out[s] = on ? c + 1 : -c - 1;
   *count = c;
   return on;
 }
 
-template <int NT, bool kScenes>
+// kSlab: the slab form (gd_march's kSlab). psi, tnp, vel and tg are the
+// slab's rows with m.H halo rows on either side (S scenes of m.Z + 2 m.H
+// rows), live S scenes of live_Z rows.
+template <int NT, bool kScenes, bool kSlab>
 __global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
   extern __shared__ float ring[];  // [3][NT + 1][kTileY + 2r][kTileX + 2r]
 
   const int s = kScenes ? (int)blockIdx.y : 0;
   int count;
-  const bool on = gd_scene_on(a, s, &count);  // uniform over the block
+  const bool on = gd_scene_on<kSlab>(a, s, &count);  // uniform over the block
   if (!on && !a.copy_frozen) return;
 
   const MarchShape& m = a.m;
-  const unsigned N = (unsigned)m.Z * m.Y * m.X;
+  const unsigned N =
+      kSlab ? (unsigned)(m.Z + 2 * m.H) * m.Y * m.X : (unsigned)m.Z * m.Y * m.X;
   const size_t fo = (size_t)3 * N * s, vo = (size_t)N * s;  // field and volume offsets
+  const size_t ho = kSlab ? (size_t)m.H * m.Y * m.X : 0;     // the slab's row 0
+  const size_t lo = kSlab ? (size_t)a.live_Z * m.Y * m.X * s : vo;
   const int par = count & 1;
   MarchIO io;
-  io.psi = a.psi[par] + fo;
-  io.tnp = a.tnp[par] + vo;
-  io.vel = a.vel[par] != nullptr ? a.vel[par] + fo : nullptr;
-  io.tg = a.tg + vo;
-  io.live = a.live + vo;
-  io.psi_out = a.psi[par ^ 1] + fo;
-  io.tnp_out = a.tnp[par ^ 1] + vo;
-  io.vel_out = io.vel != nullptr ? a.vel[par ^ 1] + fo : nullptr;
+  io.psi = a.psi[par] + fo + ho;
+  io.tnp = a.tnp[par] + vo + ho;
+  io.vel = a.vel[par] != nullptr ? a.vel[par] + fo + ho : nullptr;
+  io.tg = a.tg + vo + ho;
+  io.live = a.live + lo;
+  io.psi_out = a.psi[par ^ 1] + fo + ho;
+  io.tnp_out = a.tnp[par ^ 1] + vo + ho;
+  io.vel_out = io.vel != nullptr ? a.vel[par ^ 1] + fo + ho : nullptr;
 
   const Segment g = segment(blockIdx.x, m);
   if (!on) {  // the one-call form: the block's voxels pass through
@@ -176,26 +211,27 @@ __global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
   float w[NT];
 #pragma unroll
   for (int u = 0; u < NT; ++u) w[u] = __ldg(a.taps + u);
-  block_max_atomic(gd_march<NT, true>(io, w, ring, g, m), a.max_bits + s);
+  block_max_atomic(gd_march<NT, true, 0, 0, kSlab>(io, w, ring, g, m), a.max_bits + s);
 }
 
 // The tile partials of 0.5 * sum (tg - tnp')^2 after the call's last launch:
 // sum over tile blockIdx.x of 256 consecutive voxels in block_sum's order —
 // the partial kernel E forms for the same tile (gd_multi.cu). ctl is row n:
 // a scene that ran the last launch has c >= 0 and its tnp' in buffer c & 1;
-// a frozen scene's partials are 0.
+// a frozen scene's partials are 0. A scene's N voxels start stride floats
+// after the previous scene's (the slab form: its rows inside the halo).
 template <bool kScenes>
 __global__ void __launch_bounds__(kBlock)
     energy_partials_kernel(const float* tnp0, const float* tnp1, const float* __restrict__ tg,
                            const int* __restrict__ ctl, float* __restrict__ e_partials,
-                           unsigned N) {
+                           unsigned N, size_t stride) {
   const int s = kScenes ? (int)blockIdx.y : 0;
   const int c = ctl[s];
   const unsigned i = blockIdx.x * kBlock + threadIdx.x;
   float e2 = 0.0f;
   if (c >= 0 && i < N) {
-    const float* tnp = ((c & 1) != 0 ? tnp1 : tnp0) + (size_t)N * s;
-    const float d = tg[(size_t)N * s + i] - tnp[i];
+    const float* tnp = ((c & 1) != 0 ? tnp1 : tnp0) + stride * s;
+    const float d = tg[stride * s + i] - tnp[i];
     e2 = d * d;
   }
   const float sum = block_sum(e2);
@@ -220,13 +256,33 @@ struct GdCall {
   cudaStream_t stream;
 };
 
+// The dU ring's bytes: NT + 1 slots of three channels of the tile and its halo.
+template <int NT>
+constexpr size_t gd_smem_bytes() {
+  return sizeof(float) * 3 * (NT + 1) * (kTileY + 2 * (NT / 2)) * (kTileX + 2 * (NT / 2));
+}
+
+// The tile partials and the fixed-order sum of the energy after a call's last
+// launch, whose ctl row is ctl_n (energy_partials_kernel, energy_final_kernel).
+template <bool kScenes>
+int gd_energy(const float* tnp0, const float* tnp1, const float* tg, const int* ctl_n,
+              float* e_partials, float* e_data, unsigned N, size_t stride, int S,
+              cudaStream_t stream) {
+  const int n_tiles = blocks_for(N);
+  energy_partials_kernel<kScenes><<<dim3(n_tiles, S), kBlock, 0, stream>>>(
+      tnp0, tnp1, tg, ctl_n, e_partials, N, stride);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  energy_final_kernel<<<S, kBlock, 0, stream>>>(e_partials, n_tiles, e_data);
+  return (int)cudaGetLastError();
+}
+
 template <int NT, bool kScenes>
 int gd_iterations_launch(GdCall c) {
   GdArgs& a = c.a;
-  constexpr int r = NT / 2;
-  const size_t smem = sizeof(float) * 3 * (NT + 1) * (kTileY + 2 * r) * (kTileX + 2 * r);
+  constexpr size_t smem = gd_smem_bytes<NT>();
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes>,
+  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemsetAsync(c.max_sq, 0, sizeof(float) * c.n * c.S, c.stream);
@@ -238,24 +294,45 @@ int gd_iterations_launch(GdCall c) {
     a.ctl_out = c.ctl + (size_t)(k + 1) * c.S;
     a.prev_max = k > 0 ? rows + (size_t)(k - 1) * c.S : nullptr;
     a.max_bits = rows + (size_t)k * c.S;
-    gd_fused_kernel<NT, kScenes><<<grid, kBlock, smem, c.stream>>>(a);
+    gd_fused_kernel<NT, kScenes, false><<<grid, kBlock, smem, c.stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (c.e_partials == nullptr) return 0;
   const unsigned N = (unsigned)a.m.Z * a.m.Y * a.m.X;
-  const int n_tiles = blocks_for(N);
-  energy_partials_kernel<kScenes><<<dim3(n_tiles, c.S), kBlock, 0, c.stream>>>(
-      a.tnp[0], a.tnp[1], a.tg, c.ctl + (size_t)c.n * c.S, c.e_partials, N);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  energy_final_kernel<<<c.S, kBlock, 0, c.stream>>>(c.e_partials, n_tiles, c.e_data);
-  return (int)cudaGetLastError();
+  return gd_energy<kScenes>(a.tnp[0], a.tnp[1], a.tg, c.ctl + (size_t)c.n * c.S, c.e_partials,
+                            c.e_data, N, N, c.S, c.stream);
 }
 
 template <int NT>
 int gd_iterations_scenes(const GdCall& c) {
   return c.S == 1 ? gd_iterations_launch<NT, false>(c) : gd_iterations_launch<NT, true>(c);
+}
+
+// One launch of the slab form, then (e_partials set) the energy of the
+// slab's own rows.
+template <int NT, bool kScenes>
+int gd_slab_launch(const GdArgs& a, int S, float* e_partials, float* e_data,
+                   cudaStream_t stream) {
+  constexpr size_t smem = gd_smem_bytes<NT>();
+  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.m.tiles_x * a.m.tiles_y * a.m.segs, S);
+  gd_fused_kernel<NT, kScenes, true><<<grid, kBlock, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || e_partials == nullptr) return (int)err;
+  const size_t XY = (size_t)a.m.Y * a.m.X, ho = (size_t)a.m.H * XY;
+  return gd_energy<kScenes>(a.tnp[0] + ho, a.tnp[1] + ho, a.tg + ho, a.ctl_out, e_partials,
+                            e_data, (unsigned)(a.m.Z * XY), (size_t)(a.m.Z + 2 * a.m.H) * XY,
+                            S, stream);
+}
+
+template <int NT>
+int gd_slab_scenes(const GdArgs& a, int S, float* e_partials, float* e_data,
+                   cudaStream_t stream) {
+  return S == 1 ? gd_slab_launch<NT, false>(a, S, e_partials, e_data, stream)
+                : gd_slab_launch<NT, true>(a, S, e_partials, e_data, stream);
 }
 
 }  // namespace sobfu
@@ -294,6 +371,7 @@ extern "C" int sobfu_gd_iterations(float* psi0, float* psi1, float* tnp0, float*
   a.thresh = thresh;
   a.m = march_shape(Z, Y, X, K, LZ, alpha, w_reg, momentum);
   a.copy_frozen = copy_frozen;
+  a.n_slabs = 1, a.live_Z = Z;
   c.ctl = ctl, c.max_sq = max_sq, c.e_partials = e_partials, c.e_data = e_data;
   c.n = n, c.S = S;
   c.stream = (cudaStream_t)stream;
@@ -304,6 +382,70 @@ extern "C" int sobfu_gd_iterations(float* psi0, float* psi1, float* tnp0, float*
     case 7: return gd_iterations_scenes<7>(c);
     case 9: return gd_iterations_scenes<9>(c);
     case 11: return gd_iterations_scenes<11>(c);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One iteration of kernel A's slab form (the z_base / z_global contract of
+// fused_gd_iteration_db_padded and fused_gd_iteration_fold_padded) on the S
+// scenes of z-slab `slab` of n_slabs: rows [z_base, z_base + Zl) of a
+// z_global-deep volume. psi0/psi1, vel0/vel1 f32[S,3,Zl+2H,Y,X], tnp0/tnp1
+// and tg f32[S,Zl+2H,Y,X]: the slab's rows with H halo rows on either side,
+// which hold the neighbouring slabs' rows (the caller exchanges them; the
+// rows past the volume's ends are never read). live f32[S,live_Z,Y,X], its
+// row 0 at global row live_z0 (its rows past the volume's ends are never
+// read): the whole volume (live_z0 = 0, live_Z = z_global; the exact warp
+// needs it) or the slab and at least K rows on either side. ctl i32[2,S] (row 0 read, row 1 written) and the iteration
+// count's buffer parity as in sobfu_gd_iterations. max_prev: null, or the
+// previous launch's max bits of every slab, [n_slabs][S]; the scene runs if
+// sqrt of their max is over thresh. The launch ORs its own max bits into
+// max_row[slab][S] (zeroed by the caller). e_partials f32[S, ceil(Zl*Y*X /
+// 256)] and e_data f32[S], or both null: the energy of the slab's rows after
+// the launch, 0 for a frozen scene. Each voxel's psi', tnp', vel' and update
+// norm equal the whole-volume launch's on the same volume bit for bit.
+// n_taps odd <= 2H - 1, 1 <= S <= 65535, (Zl + 2H)*Y*X and live_Z*Y*X
+// under 2^31.
+extern "C" int sobfu_gd_slab_iteration(float* psi0, float* psi1, float* tnp0, float* tnp1,
+                                       float* vel0, float* vel1, const float* tg,
+                                       const float* live, const float* taps, int n_taps,
+                                       float alpha, float w_reg, float momentum, float thresh,
+                                       int* ctl, const float* max_prev, float* max_row,
+                                       int slab, int n_slabs, float* e_partials, float* e_data,
+                                       int S, int Zl, int Y, int X, int H, int z_base,
+                                       int z_global, int live_z0, int live_Z, int K, int LZ,
+                                       int copy_frozen, void* stream) {
+  using namespace sobfu;
+  const long long XY = (long long)Y * X;
+  if (S < 1 || S > 65535 || Zl < 1 || XY < 1 || LZ < 1 || n_slabs < 1 || slab < 0 ||
+      slab >= n_slabs || z_base < 0 || z_base + Zl > z_global || n_taps < 1 ||
+      n_taps % 2 == 0 || H < n_taps / 2 + 1 || (Zl + 2ll * H) * XY >= (1ll << 31) ||
+      (long long)live_Z * XY >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  // the global rows the live gather reaches: all of them for the exact warp,
+  // the slab's and K on either side (clamped into the volume) for the window
+  const int need_lo = K < 0 || z_base < K ? 0 : z_base - K;
+  const int need_hi = K < 0 || z_base + Zl + K > z_global ? z_global : z_base + Zl + K;
+  if (live_z0 > need_lo || live_z0 + live_Z < need_hi)
+    return (int)cudaErrorInvalidValue;
+  GdArgs a;
+  a.psi[0] = psi0, a.psi[1] = psi1;
+  a.tnp[0] = tnp0, a.tnp[1] = tnp1;
+  a.vel[0] = vel0, a.vel[1] = vel1;
+  a.tg = tg, a.live = live, a.taps = taps;
+  a.ctl_in = ctl, a.ctl_out = ctl + S;
+  a.prev_max = reinterpret_cast<const unsigned int*>(max_prev);
+  a.max_bits = reinterpret_cast<unsigned int*>(max_row) + (size_t)slab * S;
+  a.thresh = thresh;
+  a.m = march_shape(Zl, Y, X, K, LZ, alpha, w_reg, momentum);
+  a.m.H = H, a.m.z_base = z_base, a.m.z_global = z_global, a.m.live_z0 = live_z0;
+  a.copy_frozen = copy_frozen;
+  a.n_slabs = n_slabs, a.live_Z = live_Z;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (n_taps) {
+    case 1: return gd_slab_scenes<1>(a, S, e_partials, e_data, st);
+    case 3: return gd_slab_scenes<3>(a, S, e_partials, e_data, st);
+    case 5: return gd_slab_scenes<5>(a, S, e_partials, e_data, st);
+    case 7: return gd_slab_scenes<7>(a, S, e_partials, e_data, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -126,6 +126,12 @@ struct MarchShape {
   int Z, Y, X, K;  // K < 0: exact warp
   int LZ, tiles_x, tiles_y, segs;
   float hi, alpha, w_reg, momentum;
+  // The slab form (gd_march's kSlab): Z is the depth of one z-slab of a
+  // z_global-deep volume whose global row z_base is the slab's row 0. The
+  // state buffers carry H halo rows on either side of the slab (the
+  // neighbours' rows, exchanged between iterations); live's row 0 is global
+  // row live_z0. Unused by the whole-volume march.
+  int H, z_base, z_global, live_z0;
 };
 
 inline MarchShape march_shape(int Z, int Y, int X, int K, int LZ, float alpha, float w_reg,
@@ -138,6 +144,7 @@ inline MarchShape march_shape(int Z, int Y, int X, int K, int LZ, float alpha, f
   m.segs = (Z + LZ - 1) / LZ;
   m.hi = (float)((double)K - 1e-4);
   m.alpha = alpha, m.w_reg = w_reg, m.momentum = momentum;
+  m.H = 0, m.z_base = 0, m.z_global = Z, m.live_z0 = 0;
   return m;
 }
 
@@ -189,8 +196,14 @@ __device__ __forceinline__ float ld_state(const float* p) {
 // position are immediate offsets from two pointers. kLZ != 0: every
 // segment has kLZ planes (the caller's LZ divides Z), so the march's
 // kLZ + 2r + 1 plane steps unroll and each step's fill, cross halo and
-// finish are known at compile time.
-template <int NT, bool kRO, int kCube = 0, int kLZ = 0>
+// finish are known at compile time. kSlab: the march runs on one z-slab
+// (MarchShape's slab fields; every pointer of io but live at the slab's row
+// 0, a channel m.Z + 2 m.H rows long): each plane's replicate edge and
+// boundary masks, the voxel's coordinate and the live gather's clamp are
+// decided in global z, and the gather's global row is moved into live's
+// rows as an integer, so every voxel computes what the whole-volume march
+// computes for it.
+template <int NT, bool kRO, int kCube = 0, int kLZ = 0, bool kSlab = false>
 __device__ __forceinline__ float gd_march(const MarchIO& io, const float (&w)[NT], float* ring,
                                           const Segment g, const MarchShape& m) {
   constexpr int r = NT / 2;
@@ -205,7 +218,9 @@ __device__ __forceinline__ float gd_march(const MarchIO& io, const float (&w)[NT
 
   const int Z = kCube ? kCube : m.Z, Y = kCube ? kCube : m.Y, X = kCube ? kCube : m.X;
   const int XY = X * Y;
-  const unsigned N = (unsigned)Z * XY;
+  const unsigned N = (unsigned)(kSlab ? Z + 2 * m.H : Z) * XY;
+  // global z: the slab's first row, the volume's depth, live's first row
+  const int zb = kSlab ? m.z_base : 0, zG = kSlab ? m.z_global : Z, lz0 = kSlab ? m.live_z0 : 0;
   const ptrdiff_t sX = X, sXY = XY, sN = N;  // strides as pointer offsets
   typename StatePtr<kRO>::type psi = io.psi;
   typename StatePtr<kRO>::type tnp = io.tnp;
@@ -277,8 +292,9 @@ __device__ __forceinline__ float gd_march(const MarchIO& io, const float (&w)[NT
       // dU of plane p (clamped into the grid) into its slot
       float* slot = ring + (q % kSlots) * kPlane;
       const bool cross = q >= r && q < r + nz;  // an output plane: the x and y halos too
-      const int zc = min(max(p, 0), Z - 1);
-      const bool in_z = zc > 0 && zc < Z - 1;
+      const int zg = min(max(p + zb, 0), zG - 1);
+      const int zc = zg - zb;
+      const bool in_z = zg > 0 && zg < zG - 1;
 #pragma unroll
       for (int k = 0; k <= NH; ++k) {
         if (k > 0 && !(cross && has[k])) continue;
@@ -321,10 +337,10 @@ __device__ __forceinline__ float gd_march(const MarchIO& io, const float (&w)[NT
         psi_out[ci] = p_new[c];
       }
       n2_max = nan_max(norm_sq(upd), n2_max);
-      const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], gx0 + lx, gy0 + ly, zo, Z, Y, X, m.K,
-                            m.hi);
+      const Taps3 t = taps3(p_new[0], p_new[1], p_new[2], gx0 + lx, gy0 + ly, zo + zb, zG, Y, X,
+                            m.K, m.hi);
       tnp_out[i] = trilinear(t, m.K < 0, [&](int xi, int yi, int zi) {
-        return __ldg(live + (zi * XY + yi * X + xi));
+        return __ldg(live + ((zi - lz0) * XY + yi * X + xi));
       });
     }
     __syncthreads();

@@ -31,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from sobfu_tpu_torch.core import resolve_device
+
 
 # ---------------------------------------------------------------------------
 # stencils
@@ -196,14 +198,27 @@ def _window_taps(c, v, n: int, K: int, floor_coords: bool):
 
 def _window_sample(vol, psi, K: int, floor_coords: bool):
     """Window sampler on f32[..., Z, Y, X] at psi f32[3, Z, Y, X]."""
-    Z, Y, X = vol.shape[-3:]
-    dev, dt = psi.device, psi.dtype
-    vz = torch.arange(Z, dtype=dt, device=dev)[:, None, None]
+    return _window_sample_zoffset(vol, psi, 0, K, floor_coords)
+
+
+def _window_sample_zoffset(vol, psi_local, z0, K: int, floor_coords: bool, vol_z0: int = 0,
+                           z_global: Optional[int] = None):
+    """Window sampler of a z-block: psi_local f32[3, Zl, Y, X] covers global
+    rows [z0, z0 + Zl) with absolute coordinates. vol f32[..., Zv, Y, X]
+    holds global rows [vol_z0, vol_z0 + Zv) of a z_global-deep volume
+    (default: vol is the whole volume). Coordinates, displacements and taps
+    are clamped in global z, then a tap's global row is moved into vol's
+    rows as an integer; vol must hold every row a tap reaches."""
+    Zv, Y, X = vol.shape[-3:]
+    Zl = psi_local.shape[-3]
+    dev, dt = psi_local.device, psi_local.dtype
+    vz = (torch.arange(Zl, dtype=dt, device=dev) + float(z0))[:, None, None]
     vy = torch.arange(Y, dtype=dt, device=dev)[None, :, None]
     vx = torch.arange(X, dtype=dt, device=dev)[None, None, :]
-    tx = _window_taps(psi[0], vx, X, K, floor_coords)
-    ty = _window_taps(psi[1], vy, Y, K, floor_coords)
-    tz = _window_taps(psi[2], vz, Z, K, floor_coords)
+    tx = _window_taps(psi_local[0], vx, X, K, floor_coords)
+    ty = _window_taps(psi_local[1], vy, Y, K, floor_coords)
+    tz = [(iz - vol_z0, w) for iz, w in
+          _window_taps(psi_local[2], vz, Zv if z_global is None else z_global, K, floor_coords)]
     flat = vol.reshape(vol.shape[:-3] + (-1,))
 
     def take(ix, iy, iz):
@@ -233,6 +248,19 @@ def sample_nearest_floor_window(vol, psi, max_disp: int = 4):
     """Floor-corner sampling with the floored displacement clamped to
     [-K, K] (``sobfu_tpu.fields.sample_nearest_floor_window``)."""
     return _window_sample(vol, psi, int(max_disp), floor_coords=True)
+
+
+def sample_trilinear_window_zoffset(vol_full, psi_local, z0, max_disp: int = 4):
+    """Window trilinear sampling of a z-block (``sobfu_tpu.fields.
+    sample_trilinear_window_zoffset``): psi_local f32[3, Zl, Y, X] covers
+    global rows [z0, z0 + Zl) of vol_full f32[..., Z, Y, X] with absolute
+    coordinates; window semantics of :func:`sample_trilinear_window`."""
+    return _window_sample_zoffset(vol_full, psi_local, z0, int(max_disp), floor_coords=False)
+
+
+def sample_nearest_floor_window_zoffset(vol_full, psi_local, z0, max_disp: int = 4):
+    """Window floor-corner sampling of a z-block (the warped-weight rule)."""
+    return _window_sample_zoffset(vol_full, psi_local, z0, int(max_disp), floor_coords=True)
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +342,12 @@ def neg_laplacian(field: torch.Tensor) -> torch.Tensor:
 class DeformationField:
     """psi wrapper (reference sobfu::cuda::DeformationField,
     include/sobfu/vector_fields.hpp:59-112). dims is (X, Y, Z); data is
-    f32[3,Z,Y,X] on ``device``."""
+    f32[3,Z,Y,X] on ``device`` (the card by default; data keeps its own)."""
 
-    def __init__(self, dims_xyz, data: Optional[torch.Tensor] = None, device="cpu"):
+    def __init__(self, dims_xyz, data: Optional[torch.Tensor] = None, device="cuda"):
         self.dims = tuple(int(d) for d in dims_xyz)
         zyx = (self.dims[2], self.dims[1], self.dims[0])
-        self.data = identity_field(zyx, device=device) if data is None else data
+        self.data = identity_field(zyx, device=resolve_device(device)) if data is None else data
 
     def clear(self) -> None:
         """Reset to the identity (the reference's 'clear' for psi)."""
@@ -338,7 +366,7 @@ class DeformationField:
         from sobfu_tpu_torch.ops import kernels
 
         return DeformationField(
-            self.dims, kernels.inverse_fixed_point(self.data, iters, None)
+            self.dims, kernels.inverse_fixed_point(self.data, iters, None), self.data.device
         )
 
     def no_nans(self) -> bool:

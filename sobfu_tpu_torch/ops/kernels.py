@@ -7,6 +7,9 @@ gd_iteration (A)    fused_gd_iteration_pp :2443 (+ the db /     csrc/gd_iteratio
                     fold / stacked / step layouts)
 gd_iteration_scenes fused_gd_iteration_db_padded :1075 (the     csrc/gd_iteration.cu
 (A over scenes)     scene-batched frame step's kernel)
+gd_iteration_slab   fused_gd_iteration_db_padded :1075 and      csrc/gd_iteration.cu
+(A's slab form)     fused_gd_iteration_fold_padded :1704 with
+                    z_base / z_global (the z-sharded solve)
 warp (B)          window_warp_pallas :478,                    csrc/warp.cu
                     window_warp_pallas_mixed :508
 inverse_fixed_point estimate_inverse_window_pallas_multi :3061  csrc/inverse.cu
@@ -31,7 +34,10 @@ with one host read per call; its launches are counted as the iterations
 that ran (the device's counter), under the same two names. The coarse
 pyramid level runs kernel E through :class:`GdMultiLoop`: up to
 ``GD_MULTI_LAUNCHES`` chunks of 16 iterations per call, one launch each,
-the stop rule tested on the device, one host read per call.
+the stop rule tested on the device, one host read per call. The z-sharded
+solve runs A's slab form through :class:`GdSlabLoop`: a launch per slab and
+iteration, the halo rows exchanged between iterations, the stop test over
+all slabs on the device, one host read per chunk.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from sobfu_tpu_torch.tsdf import fuse_volumes
 
 launch_counts = {
     "gd_iteration": 0, "warp": 0, "inverse_fixed_point": 0, "warp_fuse": 0, "gd_multi": 0,
-    "compose_weight": 0, "warp_field3": 0, "gd_iteration_scenes": 0,
+    "compose_weight": 0, "warp_field3": 0, "gd_iteration_scenes": 0, "gd_iteration_slab": 0,
 }
 
 # what each kernel replaces and where its source lives (chip_smoke.py reports it)
@@ -76,6 +82,10 @@ KERNELS = {
         "sobfu_tpu_torch/csrc/gd_iteration.cu",
         "sobfu_tpu/ops/pallas_kernels.py:1075",
     ),
+    "gd_iteration_slab": (
+        "sobfu_tpu_torch/csrc/gd_iteration.cu",
+        "sobfu_tpu/ops/pallas_kernels.py:1075",
+    ),
 }
 
 # voxels per tile of the kernels' reductions (csrc/sampling.cuh kBlock)
@@ -85,8 +95,10 @@ TILE = 256
 # the solve loops: host reads of the device's stop state (one per call of
 # kernel A's GdLoop and of kernel E's GdMultiLoop), and the launches
 # enqueued after the loop (or every scene) had stopped
-host_reads = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0}
-empty_launches = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0}
+host_reads = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0,
+              "gd_iteration_slab": 0}
+empty_launches = {"gd_iteration": 0, "gd_iteration_scenes": 0, "gd_multi": 0,
+                  "gd_iteration_slab": 0}
 
 
 def reset_launch_counts() -> None:
@@ -954,3 +966,400 @@ class GdMultiLoop:
         if self.cpu:
             return tuple(self.cur)
         return self.bufs[self.count & 1]
+
+
+# ---------------------------------------------------------------------------
+# A's slab form: one iteration on a z-slab of a z-sharded volume
+# ---------------------------------------------------------------------------
+
+# halo rows on either side of a z-slab (the JAX package's _H: the stencils'
+# radius 1 and the convolution's radius 3; taps up to 2 * SLAB_HALO - 1)
+SLAB_HALO = 4
+
+
+def _slab_rows(p, z_base: int, z_global: int):
+    """The buffer row of slab position p (global row p + z_base clamped
+    into the volume) in a slab buffer with SLAB_HALO halo rows."""
+    return (p + z_base).clamp(0, z_global - 1) - z_base + SLAB_HALO
+
+
+def _slab_step_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K, z_base,
+                     z_global, live_z0, with_energy):
+    """One scene of :func:`gd_iteration_slab_plain` (no scene axis)."""
+    from sobfu_tpu_torch.solver import data_energy
+
+    H = SLAB_HALO
+    Zl = tnp.shape[-3] - 2 * H
+    s = taps.shape[0]
+    r = s // 2
+    dev = psi.device
+    # every buffer row's global row; the z stencils vanish on the volume's end rows
+    g = torch.arange(tnp.shape[-3], device=dev) + (z_base - H)
+    in_z = ((g > 0) & (g < z_global - 1))[1:-1, None, None]
+
+    def zdiff(f, second: bool):
+        up, mid, dn = f[..., 2:, :, :], f[..., 1:-1, :, :], f[..., :-2, :, :]
+        out = torch.zeros_like(f)
+        out[..., 1:-1, :, :] = torch.where(in_z, up + dn - 2.0 * mid if second
+                                           else (up - dn) * 0.5, 0.0)
+        return out
+
+    grad = torch.stack([fields.central_diff(tnp, -1), fields.central_diff(tnp, -2),
+                        zdiff(tnp, False)])
+    lap = -((fields.second_diff(psi, -1) + fields.second_diff(psi, -2)) + zdiff(psi, True))
+    dU = (tnp - tg)[None] * grad + w_reg * lap
+    own = dU[:, H:H + Zl]
+    # the z taps read dU of the clamped global rows (the replicate edge)
+    l = torch.arange(Zl, device=dev)
+    cz = torch.zeros_like(own)
+    for u in range(s):
+        cz = cz + taps[u] * dU.index_select(1, _slab_rows(l + (r - u), z_base, z_global))
+    dU_S = (fields.conv1d_replicate(own, taps, -1) + fields.conv1d_replicate(own, taps, -2)) + cz
+    if momentum is not None:
+        vel_new = momentum * vel[:, H:H + Zl] + dU_S
+        update = alpha * vel_new
+    else:
+        vel_new = None
+        update = alpha * dU_S
+    psi_new = psi[:, H:H + Zl] - update
+    if K is None:
+        tnp_new = fields.sample_trilinear(live, psi_new)
+    else:
+        tnp_new = fields._window_sample_zoffset(live, psi_new, z_base, K, False,
+                                                vol_z0=live_z0, z_global=z_global)
+    max_sq = torch.max(torch.sum(update * update, dim=0))
+    out = (psi_new, tnp_new, vel_new, max_sq)
+    return out + (data_energy(tg[H:H + Zl], tnp_new),) if with_energy else out
+
+
+def gd_iteration_slab_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                            z_base: int, z_global: int, live_z0: int = 0, active=None,
+                            with_energy: bool = False):
+    """:func:`gd_iteration_slab`'s plain version: the whole-volume step
+    (:func:`gd_iteration_plain`) of each voxel of the slab, its z stencils,
+    replicate edge and live gather decided in global z. An inactive scene
+    passes through with max_sq (and energy) 0."""
+    S = psi.shape[0]
+    H = SLAB_HALO
+    Zl = tnp.shape[-3] - 2 * H
+    on = [True] * S if active is None else [bool(a) for a in active]
+    outs = []
+    for k in range(S):
+        v = vel[k] if momentum is not None else None
+        if on[k]:
+            outs.append(_slab_step_plain(psi[k], tnp[k], v, tg[k], live[k], taps, alpha, w_reg,
+                                         momentum, K, z_base, z_global, live_z0, with_energy))
+        else:
+            zero = psi.new_zeros(())
+            outs.append((psi[k][:, H:H + Zl], tnp[k][H:H + Zl],
+                         None if v is None else v[:, H:H + Zl], zero)
+                        + ((zero,) if with_energy else ()))
+    return tuple(torch.stack(col) if col[0] is not None else None for col in zip(*outs))
+
+
+def _check_slab(psi, tnp, vel, tg, live, taps, momentum, K, z_base, z_global, live_z0) -> tuple:
+    """Validate the slab form's operands; returns (S, Zl, Y, X, n_taps)."""
+    H = SLAB_HALO
+    S, _, Zp, Y, X = psi.shape
+    Zl = Zp - 2 * H
+    dev = psi.device
+    if not 1 <= S <= 65535 or Zl < 1:
+        raise ValueError(f"psi: shape {tuple(psi.shape)}, expected (S, 3, Zl + {2 * H}, Y, X)")
+    if Zp * Y * X >= 2 ** 31 or live.shape[-3] * Y * X >= 2 ** 31:
+        raise ValueError("the slab form takes slabs and live volumes under 2^31 voxels")
+    s = _check_taps(taps, dev)
+    if s > 2 * H - 1:
+        raise ValueError(f"the slab form takes at most {2 * H - 1} taps, got {s}")
+    if not 0 <= z_base <= z_global - Zl:
+        raise ValueError(f"slab rows [{z_base}, {z_base + Zl}) outside a {z_global}-deep volume")
+    Zv = live.shape[-3]
+    lo = 0 if K is None else max(0, z_base - int(K))
+    hi = z_global if K is None else min(z_global, z_base + Zl + int(K))
+    if K is not None and int(K) > H:
+        raise ValueError(f"window half-width K={K} exceeds the slab halo {H}")
+    if not (live_z0 <= lo and live_z0 + Zv >= hi):
+        raise ValueError(f"live rows [{live_z0}, {live_z0 + Zv}) miss the rows [{lo}, {hi}) "
+                         "the gather reaches")
+    for name, t, shape in (("psi", psi, (S, 3, Zp, Y, X)), ("tnp", tnp, (S, Zp, Y, X)),
+                           ("tg", tg, (S, Zp, Y, X)), ("live", live, (S, Zv, Y, X))):
+        _check(name, t, shape, dev)
+    if momentum is not None:
+        _check("vel", vel, (S, 3, Zp, Y, X), dev)
+    return S, Zl, Y, X, s
+
+
+def _launch_slab(bufs, tg, live, taps, alpha, w_reg, momentum, K, thresh, ctl, max_prev,
+                 max_row, slab: int, n_slabs: int, parts, e, z_base: int, z_global: int,
+                 live_z0: int, plan: dict, copy_frozen: bool = False) -> None:
+    """Enqueue one launch of A's slab form (sobfu_gd_slab_iteration) on the
+    ping-pong buffers bufs = ((psi, tnp, vel), (psi, tnp, vel)) of one slab;
+    nothing is counted here."""
+    from sobfu_tpu_torch.ops._build import library
+
+    (psi0, tnp0, vel0), (psi1, tnp1, vel1) = bufs
+    S, _, Zp, Y, X = psi0.shape
+    Zl = Zp - 2 * SLAB_HALO
+    dev = psi0.device
+    has_vel = momentum is not None
+    with torch.cuda.device(dev):
+        rc = library().sobfu_gd_slab_iteration(
+            psi0.data_ptr(), psi1.data_ptr(), tnp0.data_ptr(), tnp1.data_ptr(),
+            vel0.data_ptr() if has_vel else None, vel1.data_ptr() if has_vel else None,
+            tg.data_ptr(), live.data_ptr(), taps.data_ptr(), taps.shape[0],
+            float(alpha), float(w_reg), float(momentum) if has_vel else 0.0, float(thresh),
+            ctl.data_ptr(), _ptr(max_prev), max_row.data_ptr(), slab, n_slabs,
+            _ptr(parts), _ptr(e), S, Zl, Y, X, SLAB_HALO, z_base, z_global, live_z0,
+            live.shape[-3], _K(K), plan["LZ"], int(copy_frozen),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gd_iteration_slab: CUDA launch failed with error {rc}")
+
+
+def gd_iteration_slab(psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
+                      momentum: Optional[float], K: Optional[int], z_base: int, z_global: int,
+                      live_z0: int = 0, active=None, with_energy: bool = False):
+    """Kernel A's slab form: one iteration on z-slab rows [z_base, z_base +
+    Zl) of a z_global-deep volume, for S scenes, in one launch (two more
+    small ones with the energy; counted once).
+
+    psi f32[S,3,Zl+2H,Y,X], tnp and tg f32[S,Zl+2H,Y,X] (H = SLAB_HALO):
+    the slab's rows with H rows of the neighbouring slabs on either side
+    (what a halo exchange puts there; the rows past the volume's ends are
+    never read); vel the same shape as psi when momentum is set, else
+    ignored. live f32[S,Zv,Y,X] holds global rows [live_z0, live_z0 + Zv)
+    (rows outside the volume are never read): the whole volume (the exact
+    warp, K None, needs it) or at least the slab and K rows on either side.
+    taps: odd, at most 2H - 1. active: bool
+    [S] on the device (None: every scene runs); an inactive scene keeps its
+    state and reports 0. Returns (psi', tnp', vel' or None, max_sq f32[S])
+    for the slab's own rows (f32[S,3,Zl,Y,X] views); with_energy appends
+    0.5 sum (tg - tnp')^2 over the slab's rows, f32[S]. Each voxel equals
+    :func:`gd_iteration` on the whole volume bit for bit (the same
+    arithmetic, every boundary decided in global z).
+    """
+    z_base, z_global, live_z0 = int(z_base), int(z_global), int(live_z0)
+    S, Zl, Y, X, _ = _check_slab(psi, tnp, vel, tg, live, taps, momentum, K, z_base, z_global,
+                                 live_z0)
+    if _on_cpu(psi):
+        return gd_iteration_slab_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K,
+                                       z_base, z_global, live_z0, active, with_energy)
+    dev = psi.device
+    H = SLAB_HALO
+    has_vel = momentum is not None
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty_like(psi), torch.empty_like(tnp), torch.empty_like(psi) if has_vel else None)
+    ctl = torch.zeros((2, S), dtype=torch.int32, device=dev)
+    if active is not None:
+        ctl[0] = torch.as_tensor(active, device=dev).to(torch.int32) - 1
+    max_row = torch.zeros((1, S), **f32)
+    parts = torch.empty((S, _n_tiles((Zl, Y, X))), **f32) if with_energy else None
+    e = torch.empty((S,), **f32) if with_energy else None
+    _launch_slab(((psi, tnp, vel if has_vel else None), out), tg, live, taps, alpha, w_reg,
+                 momentum, K, 0.0, ctl, None, max_row, 0, 1, parts, e, z_base, z_global, live_z0,
+                 gd_tile_plan((Zl, Y, X), taps.shape[0], _n_sm(dev)), copy_frozen=True)
+    launch_counts["gd_iteration_slab"] += 1
+    own = (out[0][:, :, H:H + Zl], out[1][:, H:H + Zl],
+           out[2][:, :, H:H + Zl] if has_vel else None, max_row[0])
+    return own + (e,) if with_energy else own
+
+
+def _exchange_rows(slabs, H: int) -> int:
+    """Fill the H halo rows on either side of each slab buffer f32[...,
+    Zl+2H, Y, X] (a list in z order, any devices) from its neighbours' own
+    rows; the outer rows of the end slabs are left as they are. A copy
+    between two cards is ordered after both cards' current streams (torch's
+    cross-device copy records an event on each side). Returns the bytes
+    copied."""
+    n = 0
+    for lo, hi in zip(slabs[:-1], slabs[1:]):
+        Zl = lo.shape[-3] - 2 * H
+        hi[..., :H, :, :].copy_(lo[..., Zl:Zl + H, :, :])
+        lo[..., Zl + H:, :, :].copy_(hi[..., H:2 * H, :, :])
+        n += 2 * hi[..., :H, :, :].numel() * hi.element_size()
+    return n
+
+
+class GdSlabLoop:
+    """The gradient-descent loop of a z-sharded solve on kernel A's slab
+    form, advanced in chunks with one host read per chunk: the sharded
+    counterpart of :class:`GdLoop` (``run`` and ``state`` take and return
+    the same things).
+
+    psi: a list over the z-slabs, in z order, of f32[S,3,Zl,Y,X] on each
+    slab's device; tnp the same of f32[S,Zl,Y,X]; tg the slabs with H
+    halo rows (f32[S,Zl+2H,Y,X], exchanged once per solve by the caller);
+    live the same, or with K None each slab's copy of the whole volume.
+    Slab j holds global rows [j Zl, (j + 1) Zl) of a z_global-deep volume.
+    On the card the state lives in a ping-pong pair of halo-padded buffers
+    per slab, allocated here once per solve; an iteration exchanges the
+    halo rows of psi and tnp (H rows each way between neighbours), then
+    launches every slab, and each launch runs a scene only if the max norm
+    of the previous iteration over ALL slabs passes the stop test (the
+    pmax). Several cards: each card holds the control rows of every slab
+    and each slab's norm words are copied to the others after its launch.
+    The host reads the outcome once per chunk; the energy is each slab's,
+    summed on the host (the psum). On the CPU the same iterations run on
+    :func:`gd_iteration_slab_plain`. ``halo_bytes`` counts the bytes the
+    exchanges copied; launches are counted per slab.
+    """
+
+    def __init__(self, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, thresh,
+                 z_global: int, energy: bool = False):
+        import numpy as np
+
+        H = SLAB_HALO
+        self.n = len(psi)
+        S, _, Zl, Y, X = psi[0].shape
+        self.Zl, self.z_global = Zl, int(z_global)
+        self.z_base = [j * Zl for j in range(self.n)]
+        self.live_z0 = [0 if K is None else zb - H for zb in self.z_base]
+        # each slab's taps on its device
+        self.taps = [taps if taps.device == p.device else taps.to(p.device) for p in psi]
+        self.args = (tg, live, alpha, w_reg, momentum, K, float(thresh))
+        self.count = np.zeros(S, np.int64)
+        self.halo_bytes = self.iterations = 0  # the exchanges' bytes and iterations
+        self.cpu = _on_cpu(psi[0])
+        has_vel = momentum is not None
+
+        def padded(t):
+            buf = t.new_zeros(t.shape[:-3] + (Zl + 2 * H,) + t.shape[-2:])
+            buf[..., H:H + Zl, :, :] = t
+            return buf
+
+        cur = [(padded(p), padded(t), p.new_zeros(p.shape[:-3] + (Zl + 2 * H, Y, X))
+                if has_vel else None) for p, t in zip(psi, tnp)]
+        for j, t in enumerate(tg):
+            _check_slab(cur[j][0], cur[j][1], cur[j][2], t, live[j], self.taps[j], momentum, K,
+                        self.z_base[j], self.z_global, self.live_z0[j])
+        if self.cpu:
+            self.cur = cur
+            return
+        self.bufs = [(c, tuple(None if a is None else torch.empty_like(a) for a in c))
+                     for c in cur]
+        self.plan = gd_tile_plan((Zl, Y, X), taps.shape[0], _n_sm(psi[0].device))
+        # per card: ctl rows 0..GD_CHUNK (int32), every slab's norm rows
+        # [GD_CHUNK][n][S] and energies [n][S] (float32 bits), read at once
+        self.devices = list(dict.fromkeys(p.device for p in psi))
+        self.ctl_rows = (GD_CHUNK + 1) * S
+        self.out = {d: torch.zeros(self.ctl_rows + (GD_CHUNK + 1) * self.n * S,
+                                   dtype=torch.int32, device=d) for d in self.devices}
+        self.parts = ([torch.empty((S, _n_tiles((Zl, Y, X))), dtype=torch.float32,
+                                   device=p.device) for p in psi] if energy else None)
+
+    def _views(self, d, S: int):
+        """(ctl [GD_CHUNK+1, S], norm rows [GD_CHUNK, n, S], energies [n, S])
+        of card d's control buffer."""
+        out = self.out[d]
+        rest = out[self.ctl_rows:].view(torch.float32)
+        return (out[:self.ctl_rows].view(GD_CHUNK + 1, S),
+                rest[:GD_CHUNK * self.n * S].view(GD_CHUNK, self.n, S),
+                rest[GD_CHUNK * self.n * S:].view(self.n, S))
+
+    def run(self, n: int, active, with_energy: bool = False):
+        """Up to n (<= GD_CHUNK) iterations of every slab from the current
+        state; active bool[S] (host) names the scenes that run. Returns
+        (done int32[S], max_sq float32[n, S] over all slabs, the energy
+        float32[S] summed over the slabs or None) on the host."""
+        import numpy as np
+
+        if not 1 <= n <= GD_CHUNK:
+            raise ValueError(f"a chunk is 1..{GD_CHUNK} iterations, got {n}")
+        active = np.asarray(active, bool)
+        tg, live, alpha, w_reg, momentum, K, thresh = self.args
+        H, S = SLAB_HALO, active.shape[0]
+        counts = self.count[active]
+        if counts.size and (counts != counts[0]).any():
+            raise RuntimeError("the running scenes of a slab loop differ in their iterations")
+        c0 = int(counts[0]) if counts.size else 0
+        if self.cpu:
+            on = active.copy()
+            done = np.zeros(S, np.int32)
+            rows = np.zeros((n, S), np.float32)
+            e = np.zeros(S, np.float32) if with_energy else None
+            for k in range(n):
+                if k:
+                    on &= np.sqrt(rows[k - 1]) > np.float32(thresh)
+                if not on.any():
+                    break
+                for field in (0, 1):
+                    self.halo_bytes += _exchange_rows([c[field] for c in self.cur], H)
+                self.iterations += 1
+                last = with_energy and k == n - 1
+                outs = [gd_iteration_slab_plain(*c, tg[j], live[j], self.taps[j], alpha, w_reg,
+                                                momentum, K, self.z_base[j], self.z_global,
+                                                self.live_z0[j], torch.as_tensor(on), last)
+                        for j, c in enumerate(self.cur)]
+                for c, o in zip(self.cur, outs):
+                    for buf, new in zip(c, o[:3]):
+                        if buf is not None:
+                            buf[..., H:H + self.Zl, :, :] = new
+                rows[k] = np.max([o[3].numpy() for o in outs], axis=0)
+                done += on
+                if last:
+                    e = np.sum([o[4].numpy() for o in outs], axis=0, dtype=np.float32)
+        else:
+            if with_energy and self.parts is None:
+                raise ValueError("this GdSlabLoop was made without energy")
+            start = torch.from_numpy(np.where(active, self.count, -self.count - 1)
+                                     .astype(np.int32))
+            views = {d: self._views(d, S) for d in self.devices}
+            for d, (ctl, mx, _) in views.items():
+                ctl[0].copy_(start)
+                mx.zero_()
+            for k in range(n):
+                par = (c0 + k) & 1
+                for field in (0, 1):
+                    self.halo_bytes += _exchange_rows([b[par][field] for b in self.bufs], H)
+                self.iterations += 1
+                last = with_energy and k == n - 1
+                for j, bufs in enumerate(self.bufs):
+                    ctl, mx, ev = views[bufs[0][0].device]
+                    _launch_slab(bufs, tg[j], live[j], self.taps[j], alpha, w_reg, momentum, K,
+                                 thresh,
+                                 ctl[k], mx[k - 1] if k else None, mx[k], j, self.n,
+                                 self.parts[j] if last else None, ev[j] if last else None,
+                                 self.z_base[j], self.z_global, self.live_z0[j], self.plan)
+                if len(self.devices) > 1:  # every card tests the max over all slabs
+                    for j, b in enumerate(self.bufs):
+                        src = views[b[0][0].device][1][k, j]
+                        for d in self.devices:
+                            if d != src.device:
+                                views[d][1][k, j].copy_(src)
+            lead = self.devices[0]
+            if last and len(self.devices) > 1:  # the energies to the first card
+                for j, b in enumerate(self.bufs):
+                    if b[0][0].device != lead:
+                        views[lead][2][j].copy_(views[b[0][0].device][2][j])
+            host = self.out[lead].cpu().numpy()
+            end = host[n * S:(n + 1) * S]
+            done = (np.where(end >= 0, end, -end - 1) - self.count).astype(np.int32)
+            rest = host[self.ctl_rows:].view(np.float32)
+            rows = rest[:n * self.n * S].reshape(n, self.n, S).max(axis=1)
+            e = (rest[GD_CHUNK * self.n * S:].reshape(self.n, S).sum(axis=0, dtype=np.float32)
+                 if with_energy else None)
+            if (done < 0).any() or (done > n).any():
+                raise RuntimeError(f"kernel A's slab iteration counter is inconsistent: {end}")
+            ran = int(done.max())
+            launch_counts["gd_iteration_slab"] += ran * self.n
+            empty_launches["gd_iteration_slab"] += (n - ran) * self.n
+        self.count += done
+        host_reads["gd_iteration_slab"] += 1
+        return done, rows, e
+
+    def state(self):
+        """Per slab, (psi f32[S,3,Zl,Y,X], tnp f32[S,Zl,Y,X], vel or None):
+        the slabs' own rows after the iterations run so far."""
+        H, Zl = SLAB_HALO, self.Zl
+
+        def own(t):
+            return None if t is None else t[..., H:H + Zl, :, :]
+
+        if self.cpu:
+            return [tuple(own(t) for t in c) for c in self.cur]
+        par = self.count & 1
+        if (par == par[0]).all():
+            return [tuple(own(t) for t in b[int(par[0])]) for b in self.bufs]
+        return [tuple(None if x is None else own(torch.stack(
+            [(y if p else x)[s] for s, p in enumerate(par)])) for x, y in zip(*b))
+            for b in self.bufs]

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of the single-device half of
 ``sobfu_tpu.parallel.sharding``: :func:`make_frame_step` integrates, solves
-and fuses a batch of S independent scenes per call. In the JAX package
+and fuses a batch of S independent scenes per call (over a ('scene', 'z')
+mesh it returns :mod:`sobfu_tpu_torch.parallel.zshard`'s step). In the JAX package
 this is the step on a one-device mesh (``n_scene = n_z = 1``), where
 ``jax.vmap`` runs the scenes' while_loops inside the device. Here the S
 scenes share every iteration's launch of kernel A
@@ -14,19 +15,19 @@ vmap; the loop ends when no scene is active. The warps (B), the inverse
 (C), the warp + fuse (D), the resamples and the integration run once per
 scene, so a scene of a batch equals the same scene run alone bit for bit.
 
-Not ported: the z-sharded half (``make_mesh``, ``make_sharded_estimate_psi``,
-``estimate_psi_sharded``, the ``ppermute`` halo exchange and the z-slab
-contract of the fused kernel), which needs several cards. On one device
-the K-halo of the z-block is the volume's edge replica, so the JAX
-package's ``_sample_window_local`` (the window sampler of the halo-extended
-volume at shifted coordinates) takes the values of the port's window
-sampler on the volume itself, up to the rounding of the shifted
-coordinate; the port samples the volume as it is.
+The z-sharded half (``make_mesh``, ``make_sharded_estimate_psi``,
+``estimate_psi_sharded``, the halo exchange and the z-slab contract of the
+fused kernel) is :mod:`sobfu_tpu_torch.parallel.zshard`. On one device the
+K-halo of the z-block is the volume's edge replica, so the JAX package's
+``_sample_window_local`` (the window sampler of the halo-extended volume at
+shifted coordinates) takes the values of the port's window sampler on the
+volume itself, up to the rounding of the shifted coordinate; the step here
+samples the volume as it is.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,13 +78,23 @@ def _gd_loop_scenes(psi, tg, live, taps, alpha, w_reg, max_iter, thresh, K, *,
     check and at max_iter, so every count is the per-iteration loop's. Returns (psi, tnp, iters
     int32[S], mnorm float32[S]), the last two on the host.
     """
-    S = psi.shape[0]
     dev = psi.device
     taps_t = torch.as_tensor(np.asarray(taps, np.float32), device=dev)
     alpha, w_reg = float(np.float32(alpha)), float(np.float32(w_reg))
-    thresh, rel = np.float32(thresh), np.float32(stall_rel)
     loop = kernels.GdLoop("gd_iteration_scenes", psi, _warp_scenes(live, psi, K), tg, live,
-                          taps_t, alpha, w_reg, momentum, K, thresh, energy=bool(stall_window))
+                          taps_t, alpha, w_reg, momentum, K, np.float32(thresh),
+                          energy=bool(stall_window))
+    it, mnorm = _run_chunks(loop, psi.shape[0], max_iter, thresh, stall_window, stall_rel)
+    psi, tnp, _ = loop.state()
+    return psi, tnp, it, mnorm
+
+
+def _run_chunks(loop, S: int, max_iter: int, thresh, stall_window: int, stall_rel: float):
+    """Drive a chunked loop (``kernels.GdLoop`` or ``kernels.GdSlabLoop``:
+    ``run(n, active, with_energy) -> (done, max_sq rows, energy)``) over S
+    scenes to the per-scene stop of the JAX while_loop; returns (iters
+    int32[S], the last max norm float32[S])."""
+    thresh, rel = np.float32(thresh), np.float32(stall_rel)
     it = np.zeros(S, np.int32)
     mnorm = np.full(S, np.inf, np.float32)
     e_ref = np.full(S, np.inf, np.float32)
@@ -106,8 +117,7 @@ def _gd_loop_scenes(psi, tg, live, taps, alpha, w_reg, max_iter, thresh, K, *,
             stall = (it0 + n >= 2 * stall_window) & (e_ref - e_now < rel * np.abs(e_now))
             stalled = stalled | (ran & stall)
             e_ref = np.where(ran, e_now, e_ref)
-    psi, tnp, _ = loop.state()
-    return psi, tnp, it, mnorm
+    return it, mnorm
 
 
 def _pyramid_warmstart_scenes(psi, tg, tn, taps, alpha, w_reg, thresh, K, levels,
@@ -146,6 +156,53 @@ def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+class StepInputs(NamedTuple):
+    """A frame step's arguments: the arrays as float32 tensors on the step's
+    device, the rest as host values."""
+
+    psi: torch.Tensor
+    tg: torch.Tensor
+    wg: torch.Tensor
+    dists: torch.Tensor
+    psi_inv0: Optional[torch.Tensor]
+    v2c: np.ndarray
+    intr: tuple
+    vsz: tuple
+    trunc: float
+    eta: float
+    max_weight: float
+    taps: np.ndarray
+    alpha: float
+    w_reg: float
+    max_iter: int
+    thresh: np.float32
+
+
+def _step_inputs(dims, dev, warm_inverse: bool, psi_b, tg_b, wg_b, dists_b, vol2cam_b, intr,
+                 voxel_sizes, trunc, eta, max_weight, taps, alpha, w_reg, max_iter, thresh,
+                 psi_inv0_b) -> StepInputs:
+    """Check and convert a frame step's arguments (see :class:`FrameStep`)."""
+    if (psi_inv0_b is not None) != warm_inverse:
+        raise TypeError("psi_inv0_b is passed exactly when the step has warm_inverse")
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+
+    def floats(a):
+        return tuple(float(v) for v in _host(a).astype(np.float32))
+
+    psi = t(psi_b)
+    S = psi.shape[0]
+    if tuple(psi.shape) != (S, 3) + dims:
+        raise ValueError(f"psi_b: shape {tuple(psi.shape)}, expected (S, 3) + {dims}")
+    trunc, eta, max_weight = (float(_host(a)) for a in (trunc, eta, max_weight))
+    return StepInputs(
+        psi, t(tg_b), t(wg_b), t(dists_b), None if psi_inv0_b is None else t(psi_inv0_b),
+        _host(vol2cam_b).astype(np.float32), floats(intr), floats(voxel_sizes), trunc, eta,
+        max_weight, _host(taps).astype(np.float32), float(_host(alpha)), float(_host(w_reg)),
+        int(_host(max_iter)), np.float32(_host(thresh)))
+
+
 class FrameStep:
     """The step of :func:`make_frame_step`:
 
@@ -172,25 +229,13 @@ class FrameStep:
     def __call__(self, psi_b, tg_b, wg_b, dists_b, vol2cam_b, intr, voxel_sizes, trunc, eta,
                  max_weight, taps, alpha, w_reg, max_iter, thresh, psi_inv0_b=None):
         o = self.opts
-        if (psi_inv0_b is not None) != o["warm_inverse"]:
-            raise TypeError("psi_inv0_b is passed exactly when the step has warm_inverse")
         dev = self.device
-
-        def t(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-
-        psi, tg, wg, dists = t(psi_b), t(tg_b), t(wg_b), t(dists_b)
-        psi_inv0 = None if psi_inv0_b is None else t(psi_inv0_b)
+        psi, tg, wg, dists, psi_inv0, v2c, intr, vsz, trunc, eta, max_weight, taps, alpha, \
+            w_reg, max_iter, thresh = _step_inputs(
+                self.dims, dev, o["warm_inverse"], psi_b, tg_b, wg_b, dists_b, vol2cam_b, intr,
+                voxel_sizes, trunc, eta, max_weight, taps, alpha, w_reg, max_iter, thresh,
+                psi_inv0_b)
         S = psi.shape[0]
-        if tuple(psi.shape) != (S, 3) + self.dims:
-            raise ValueError(f"psi_b: shape {tuple(psi.shape)}, expected (S, 3) + {self.dims}")
-        v2c = _host(vol2cam_b).astype(np.float32)
-        intr = tuple(float(v) for v in _host(intr).astype(np.float32))
-        vsz = tuple(float(v) for v in _host(voxel_sizes).astype(np.float32))
-        trunc, eta, max_weight = (float(_host(a)) for a in (trunc, eta, max_weight))
-        taps = _host(taps).astype(np.float32)
-        alpha, w_reg = float(_host(alpha)), float(_host(w_reg))
-        max_iter, thresh = int(_host(max_iter)), np.float32(_host(thresh))
         K = o["warp_window"]
 
         # each scene integrated from zero volumes (its live TSDF and weight)
@@ -249,10 +294,15 @@ def make_frame_step(
     fold_xmats: bool = False,
     axis_aligned: bool = False,
     device="cuda",
-) -> FrameStep:
+    mesh=None,
+):
     """One frame step (integrate -> solve -> fuse) over a batch of scenes
-    on one device (``sobfu_tpu.parallel.make_frame_step`` on a one-device
-    mesh); ``device`` takes the mesh's place and defaults to the card.
+    (``sobfu_tpu.parallel.make_frame_step``). Without ``mesh``, on one
+    device (``device``, the card by default): the JAX step on a one-device
+    mesh. With a ('scene', 'z') mesh from :func:`make_mesh`, the scenes
+    split over its scene rows and each volume over its z-slabs
+    (:class:`sobfu_tpu_torch.parallel.zshard.ShardedFrameStep`; ``device``
+    is then unused).
 
     Options as in JAX: fused (the JAX package's per-shard fused kernel;
     needs warp_window and taps_static, and the fine loop then takes
@@ -269,17 +319,29 @@ def make_frame_step(
     """
     del fold_xmats  # a TPU layout choice: nothing to select here
     dims = tuple(int(d) for d in dims_zyx)
-    if dims[0] < 4:
-        raise ValueError(f"z extent {dims[0]} smaller than the halo radius 4")
-    if pyramid_levels > 1 and dims[0] // 2 ** (pyramid_levels - 1) < 4:
-        raise ValueError(f"coarsest z extent {dims[0] // 2 ** (pyramid_levels - 1)} smaller "
-                         "than the halo radius 4; use fewer pyramid levels")
+    n_z = 1 if mesh is None else mesh.shape["z"]
+    if dims[0] % n_z:
+        raise ValueError(f"a {dims[0]}-deep grid does not split into {n_z} z-slabs")
+    depth = dims[0] // n_z
+    fewer = " or z-shards" if n_z > 1 else ""
+    if depth < 4:
+        raise ValueError(f"z extent {depth} smaller than the halo radius 4; use fewer z-shards "
+                         f"for a {dims[0]}-deep grid")
+    if pyramid_levels > 1 and depth // 2 ** (pyramid_levels - 1) < 4:
+        raise ValueError(f"coarsest z extent {depth // 2 ** (pyramid_levels - 1)} smaller "
+                         f"than the halo radius 4; use fewer pyramid levels{fewer}")
     if fused and (warp_window is None or taps_static is None):
         raise ValueError("fused needs warp_window and taps_static")
     if fine_window is not None and warp_window is None:
         raise ValueError("fine_window requires warp_window")
-    return FrameStep(
-        dims, core.resolve_device(device),
+    if mesh is None:
+        make, where = FrameStep, core.resolve_device(device)
+    else:
+        from sobfu_tpu_torch.parallel.zshard import ShardedFrameStep
+
+        make, where = ShardedFrameStep, mesh
+    return make(
+        dims, where,
         inverse_iters=int(inverse_iters), warp_window=warp_window, fused=bool(fused),
         taps_static=None if taps_static is None else np.asarray(taps_static, np.float32),
         momentum=momentum, warm_inverse=bool(warm_inverse),

@@ -348,6 +348,7 @@ def estimate_psi_pyramid(
     psi_inv0: Optional[torch.Tensor] = None,
     *,
     levels: int = 2,
+    coarse_max_iter: Optional[int] = None,
     record_energy: bool = False,
     energy_cap: int = 0,
     inverse_iters: int = 48,
@@ -368,7 +369,8 @@ def estimate_psi_pyramid(
     The coarse levels (:func:`_coarse_levels`) warm-start the fine level
     from the incoming displacement; only the fine level runs the inverse
     and the tail warps. ``iters`` counts every level's iterations
-    (``coarse_iters`` the coarse share).
+    (``coarse_iters`` the coarse share). coarse_max_iter caps each coarse
+    level (None: max_iter).
 
     fused: the accelerator dispatch (``Solver.fused``; JAX's fused_db). A
     coarse level where JAX would run ``fused_gd_multi_fold``
@@ -387,7 +389,8 @@ def estimate_psi_pyramid(
         raise ValueError("inv_coarse rides the multigrid inverse")
     ident_f = fields.identity_field(tuple(tsdf_n.shape), device=psi.device)
     disp, total_coarse = _coarse_levels(
-        tsdf_global, tsdf_n, psi - ident_f, levels, taps, alpha, w_reg, max_iter,
+        tsdf_global, tsdf_n, psi - ident_f, levels, taps, alpha, w_reg,
+        max_iter if coarse_max_iter is None else coarse_max_iter,
         max_update_norm_thresh, warp_window=warp_window, momentum=momentum, fused=fused,
     )
     fine = dict(

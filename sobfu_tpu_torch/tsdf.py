@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from sobfu_tpu_torch.config import Intr, Params
+from sobfu_tpu_torch.core import resolve_device
 
 
 def voxel_centers(dims_zyx, voxel_sizes_xyz, device=None) -> torch.Tensor:
@@ -42,6 +43,7 @@ def integrate_dists(
     trunc_dist: float,
     eta: float,
     axis_aligned: bool = False,
+    z_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Projective TSDF integration of a metric ray-length ('dists') map
     (reference tsdf_volume.cu:62-101): per voxel, project the centre, read
@@ -53,6 +55,9 @@ def integrate_dists(
     u = fx*xs*(1/zs) + cx depends on (z, x) only and v on (z, y) only — the
     arithmetic of the JAX package's separable path — and the image read
     is a direct index dists[v(z,y), u(z,x)].
+
+    z_offset: the global z of the volume's first row (a z-slab of a sharded
+    volume integrates its own rows).
     """
     dev = tsdf.device
     Z, Y, X = tsdf.shape
@@ -69,7 +74,7 @@ def integrate_dists(
         ar = lambda n: torch.arange(n, dtype=torch.float32, device=dev) + 0.5  # noqa: E731
         xs = torch.addcmul(t[0], ar(X), vsx)
         ys = torch.addcmul(t[1], ar(Y), vsy)
-        zs = torch.addcmul(t[2], ar(Z), vsz)
+        zs = torch.addcmul(t[2], ar(Z) + float(z_offset), vsz)
         inv_z = 1.0 / zs
         u = torch.addcmul(cx, fx * xs[None, :], inv_z[:, None])  # f32[Z, X]
         v = torch.addcmul(cy, fy * ys[None, :], inv_z[:, None])  # f32[Z, Y]
@@ -82,6 +87,7 @@ def integrate_dists(
         in_image = in_v[:, :, None] & in_u[:, None, :]
     else:
         vc = voxel_centers((Z, Y, X), voxel_sizes, device=dev)
+        vc[2] += f32(z_offset) * vsz
         cam = torch.einsum("ij,jzyx->izyx", m[:3, :3], vc) + t[:, None, None, None]
         u = fx * (cam[0] / cam[2]) + cx
         v = fy * (cam[1] / cam[2]) + cy
@@ -143,10 +149,10 @@ def init_sphere(dims_zyx, voxel_sizes_xyz, centre_xyz, radius, trunc_dist, eta, 
 
 class TsdfVolume:
     """Reference kfusion::cuda::TsdfVolume surface (dims/size (X, Y, Z);
-    arrays [Z, Y, X] on ``device``)."""
+    arrays [Z, Y, X] on ``device``, the card by default)."""
 
-    def __init__(self, params: Params, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, params: Params, device="cuda"):
+        self.device = resolve_device(device)
         self.dims = tuple(int(d) for d in params.volume_dims)  # (X, Y, Z)
         self.size = tuple(float(s) for s in params.volume_size)
         self.pose = np.asarray(params.volume_pose, dtype=np.float32)

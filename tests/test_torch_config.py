@@ -63,6 +63,7 @@ def test_port_imports_no_jax():
         "sobfu_tpu_torch.ops.kernels, sobfu_tpu_torch.mc, sobfu_tpu_torch.io, "
         "sobfu_tpu_torch.core, sobfu_tpu_torch.pyramid, sobfu_tpu_torch.solver, "
         "sobfu_tpu_torch.pipeline, sobfu_tpu_torch.ops._build, sobfu_tpu_torch.parallel, "
+        "sobfu_tpu_torch.parallel.zshard, sobfu_tpu_torch.tsdf, sobfu_tpu_torch.fields, "
         "sobfu_tpu_torch.utils.checkpoint, sobfu_tpu_torch.viz, sobfu_tpu_torch.viewer, "
         "sobfu_tpu_torch.native\n"
         "spec = importlib.util.spec_from_file_location('gate', "
@@ -90,6 +91,29 @@ def test_cuda_device_without_card_raises():
 
     with pytest.raises(RuntimeError):
         SobFusion(tc.Params())  # the default device is cuda
+
+
+def test_volume_and_field_default_to_the_card():
+    """TsdfVolume and DeformationField built without a device run on the
+    card, as SobFusion does: with no card they raise resolve_device's error
+    instead of moving to the CPU. A field given its data keeps the data's
+    device."""
+    from sobfu_tpu_torch.fields import DeformationField, identity_field
+    from sobfu_tpu_torch.tsdf import TsdfVolume
+
+    p = tc.Params()
+    p.volume_dims = (20, 16, 12)
+    if torch.cuda.is_available():
+        assert TsdfVolume(p).tsdf.device.type == "cuda"
+        assert DeformationField(p.volume_dims).data.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="is_available"):
+        TsdfVolume(p)
+    with pytest.raises(RuntimeError, match="is_available"):
+        DeformationField(p.volume_dims)
+    data = identity_field((12, 16, 20))
+    assert DeformationField(p.volume_dims, data, device="cpu").data is data
+    assert DeformationField(p.volume_dims, data).data is data
 
 
 @pytest.mark.parametrize("flag", ["--enable-viz", "--enable-viz-detailed", "--live-viz",

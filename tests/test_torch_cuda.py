@@ -724,3 +724,238 @@ def test_cli_checkpoint_resume_on_card(cuda, tmp_path, capsys):
     with np.load(a) as x, np.load(b) as y:
         assert sorted(x.files) == sorted(y.files)
         assert all(x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def _slab_operands(d, n_z, K):
+    """Each z-slab's operands of kernel A's slab form, cut from whole-volume
+    operands d (a scene axis in front) by the halo exchange."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    devs = [d["psi"].device] * n_z
+    pad = {k: zshard._halo_exchange_z(zshard._split(d[k][None], devs), zshard.H)
+           for k in ("psi", "tnp", "vel", "tg", "live")}
+    Zl = d["tg"].shape[0] // n_z
+    return [((pad["psi"][j], pad["tnp"][j], pad["vel"][j], pad["tg"][j],
+              d["live"][None] if K is None else pad["live"][j]),
+             j * Zl, 0 if K is None else j * Zl - zshard.H) for j in range(n_z)]
+
+
+SLAB_CASES = [((12, 16, 20), 2, 2, 7, 0.9), ((64, 64, 64), 4, None, 7, 0.95),
+              ((64, 64, 64), 4, 1, 5, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,n_z,K,s,momentum", SLAB_CASES)
+def test_gd_slab_kernel_matches_whole_volume_launch(cuda, dims, n_z, K, s, momentum):
+    """Kernel A's slab form on each of n_z slabs equals the whole-volume A
+    launch bit for bit (psi', tnp', vel' of the slab's rows; the max norm
+    over the slabs) and its plain version within atol 1e-5."""
+    rng = np.random.default_rng(7)
+    ident = np.stack(np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")[::-1])
+    d = {k: torch.as_tensor(v, dtype=torch.float32, device=cuda) for k, v in dict(
+        psi=ident + rng.uniform(-1.8 if K else -3.5, 1.8 if K else 3.5, (3,) + dims),
+        tnp=0.3 * rng.standard_normal(dims), vel=0.1 * rng.standard_normal((3,) + dims),
+        tg=0.3 * rng.standard_normal(dims), live=0.3 * rng.standard_normal(dims)).items()}
+    taps = torch.as_tensor(solver.sobolev_filter_1d(s, 0.1), device=cuda)
+    whole = kernels.gd_iteration(d["psi"], d["tnp"], d["vel"], d["tg"], d["live"], taps, 0.05,
+                                 0.2, momentum, K)
+    Zl = dims[0] // n_z
+    mx = []
+    for args, zb, lz0 in _slab_operands(d, n_z, K):
+        got = kernels.gd_iteration_slab(*args, taps, 0.05, 0.2, momentum, K, zb, dims[0], lz0)
+        want = kernels.gd_iteration_slab_plain(*args, taps, 0.05, 0.2, momentum, K, zb, dims[0],
+                                               lz0)
+        rows = slice(zb, zb + Zl)
+        assert torch.equal(got[0][0], whole[0][:, rows]) and torch.equal(got[1][0], whole[1][rows])
+        if momentum is not None:
+            assert torch.equal(got[2][0], whole[2][:, rows])
+        for g, w in zip(got[:3], want[:3]):
+            if w is not None:
+                torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+        mx.append(float(got[3][0]))
+    assert max(mx) == float(whole[3])
+
+
+@pytest.mark.cuda
+def test_gd_slab_loop_on_card_equals_whole_volume_loop(cuda):
+    """kernels.GdSlabLoop over 4 slabs of one card (the halo rows exchanged
+    between iterations, the stop test over all slabs on the card) against
+    kernels.GdLoop on the whole 32^3 volume: a norm stop inside a chunk of
+    16; the iterations, the norm rows and the state bit for bit, one host
+    read."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    rng = np.random.default_rng(8)
+    dims = (32, 32, 32)
+    ident = np.stack(np.meshgrid(*[np.arange(n) for n in dims], indexing="ij")[::-1])
+    d = {k: torch.as_tensor(v, dtype=torch.float32, device=cuda)[None] for k, v in dict(
+        psi=ident + rng.uniform(-1.0, 1.0, (3,) + dims), tnp=0.3 * rng.standard_normal(dims),
+        tg=0.3 * rng.standard_normal(dims), live=0.3 * rng.standard_normal(dims)).items()}
+    taps = torch.as_tensor(solver.sobolev_filter_1d(7, 0.1), device=cuda)
+    on = np.ones(1, bool)
+    probe = kernels.GdLoop("gd_iteration_scenes", d["psi"], d["tnp"], d["tg"], d["live"], taps,
+                           0.05, 0.2, 0.9, 2, -1.0)
+    norms = np.sqrt(probe.run(16, on)[1][:, 0])
+    j = max(k for k in range(12) if k == 0 or norms[k] < norms[:k].min())
+    whole = kernels.GdLoop("gd_iteration_scenes", d["psi"], d["tnp"], d["tg"], d["live"], taps,
+                           0.05, 0.2, 0.9, 2, float(norms[j]))
+    want = whole.run(16, on)
+    devs = [cuda] * 4
+    loop = kernels.GdSlabLoop(
+        zshard._split(d["psi"], devs), zshard._split(d["tnp"], devs),
+        zshard._halo_exchange_z(zshard._split(d["tg"], devs), zshard.H),
+        zshard._halo_exchange_z(zshard._split(d["live"], devs), zshard.H), taps, 0.05, 0.2, 0.9,
+        2, float(norms[j]), dims[0])
+    kernels.reset_launch_counts()
+    got = loop.run(16, on)
+    assert int(got[0][0]) == j + 1 and got[0].tolist() == want[0].tolist()
+    assert np.array_equal(got[1], want[1])
+    psi = torch.cat([s[0] for s in loop.state()], dim=-3)
+    assert torch.equal(psi, whole.state()[0])
+    assert kernels.host_reads["gd_iteration_slab"] == 1
+    assert kernels.launch_counts["gd_iteration_slab"] == 4 * (j + 1)
+    assert kernels.empty_launches["gd_iteration_slab"] == 4 * (16 - j - 1)
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_card_matches_the_cpu(cuda):
+    """make_sharded_estimate_psi on 4 slabs of one card (fused: kernel A's
+    slab form) against the same solve on 4 CPU devices (its plain version):
+    equal iterations, every output within 1e-5."""
+    from sobfu_tpu_torch.parallel import make_mesh, make_sharded_estimate_psi
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dims, vs = (32, 32, 32), 0.125 / 32
+    tg, wg = init_sphere(dims, (vs,) * 3, (0.0625,) * 3, 0.01, 10 * vs, 2 * vs)
+    tn, wn = init_sphere(dims, (vs,) * 3, (0.0625 - 1.5 * vs, 0.0625, 0.0625), 0.01, 10 * vs,
+                         2 * vs)
+    taps = solver.sobolev_filter_1d(7, 0.1)
+    opts = dict(inverse_iters=4, warp_window=2, fused=True, taps_static=tuple(taps),
+                momentum=0.9, stall_window=8, stall_rel=1e-2)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        fn = make_sharded_estimate_psi(make_mesh(n_z=4, devices=[dev] * 4), **opts)
+        outs.append(fn(fields.identity_field(dims), tg, wg, tn, wn, taps, 0.1, 0.4, 40, -1.0))
+    got, want = outs
+    assert int(got[6]) == int(want[6])
+    for g, w in zip(got[:6], want[:6]):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-5, rtol=0)
+
+
+@pytest.fixture
+def cards(cuda):
+    """Up to four distinct cards; skips with fewer than two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def _same(a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warp_window", [2, None])
+def test_sharded_solve_on_distinct_cards_equals_one_card(cards, warp_window):
+    """make_sharded_estimate_psi with each z-slab on its own card (the halo
+    rows, the stop test's norm words and the energies copied between cards)
+    equals the same mesh laid on one card bit for bit: windowed (fused,
+    momentum, warm inverse, a stall stop) and exact (gathered volumes)."""
+    from sobfu_tpu_torch.parallel import make_mesh, make_sharded_estimate_psi
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    n = len(cards)
+    dims, vs = (16 * n, 32, 32), 0.125 / 32
+    c = (0.0625, 0.0625, 0.0625 * n)
+    tg, wg = init_sphere(dims, (vs,) * 3, c, 0.02, 10 * vs, 2 * vs)
+    tn, wn = init_sphere(dims, (vs,) * 3, (c[0] - 1.5 * vs, c[1], c[2]), 0.02, 10 * vs, 2 * vs)
+    taps = solver.sobolev_filter_1d(7, 0.1)
+    psi = fields.identity_field(dims)
+    if warp_window is None:
+        opts, extra = dict(inverse_iters=4), ()
+    else:
+        opts = dict(inverse_iters=4, warp_window=2, fused=True, taps_static=tuple(taps),
+                    momentum=0.9, warm_inverse=True, stall_window=8, stall_rel=0.2)
+        extra = (psi + 0.1,)
+    outs = []
+    for devs in (cards, [cards[0]] * n):
+        mesh = make_mesh(n_z=n, devices=devs)
+        fn = make_sharded_estimate_psi(mesh, **opts)
+        outs.append((fn(psi, tg, wg, tn, wn, taps, 0.1, 0.4, 40, -1.0, *extra), mesh.gathers))
+    (got, g_gathers), (want, w_gathers) = outs
+    assert int(got[6]) == int(want[6]) and g_gathers == w_gathers
+    assert _same(got[:6], want[:6]) and float(got[7]) == float(want[7])
+    if warp_window is not None:
+        assert int(got[6]) < 40  # the stall stop fired
+
+
+def _drifting_frames(meshes, n):
+    """make_frame_step over each (1 scene x n z) mesh of ``meshes``, two
+    scenes of drifting spheres batched on A's slab form (the slab form's
+    plain version on CPU devices), two carried frames at MAX_ITER 24 (the
+    pyramid, the stall stop). Returns each mesh's two frame outputs."""
+    from sobfu_tpu_torch.parallel import make_frame_step
+    from sobfu_tpu_torch.tsdf import init_sphere
+
+    dims, vs = (16 * n, 32, 32), 0.25 / 32
+    taps = solver.sobolev_filter_1d(7, 0.1)
+    cfg = dict(inverse_iters=3, warp_window=2, fused=True, taps_static=tuple(taps),
+               momentum=0.95, warm_inverse=True, pyramid_levels=2, stall_window=8,
+               stall_rel=1e-2)
+    tg, wg = init_sphere(dims, (vs,) * 3, (0.125, 0.125, 0.0625 * n), 0.06, 8 * vs, 3 * vs)
+    psi = fields.identity_field(dims)
+    state = (torch.stack([psi] * 2), torch.stack([tg] * 2), torch.stack([wg] * 2),
+             torch.stack([psi] * 2))
+    H, W = 48, 64
+    uu = np.arange(W, dtype=np.float32)[None, :] / W
+    frames = [np.stack([0.28 + 0.08 * uu * np.ones((H, 1), np.float32) + 0.004 * i * s
+                        for s in (1, -1)]) for i in (1, 2)]
+    v2c = np.eye(4, dtype=np.float32)
+    v2c[:3, 3] = (-0.125, -0.125, 0.2)
+    scalars = ((40.0, 40.0, W / 2, H / 2), (vs,) * 3, 8 * vs, 3 * vs, 64.0, taps, 0.1, 0.2, 24,
+               1e-3)
+    runs = []
+    for mesh in meshes:
+        step = make_frame_step(dims, mesh=mesh, **cfg)
+        st, outs = state, []
+        for d in frames:
+            out = step(*st[:3], d, np.stack([v2c] * 2), *scalars, st[3])
+            outs.append(out)
+            st = (out[0], out[2], out[3], out[1])
+        runs.append(outs)
+    return runs
+
+
+@pytest.mark.cuda
+def test_frame_step_on_distinct_cards_equals_one_card(cards):
+    """make_frame_step over a (1 scene x n z) mesh of distinct cards and over
+    the same mesh on one card (_drifting_frames): equal bit for bit."""
+    from sobfu_tpu_torch.parallel import make_mesh
+
+    n = len(cards)
+    runs = _drifting_frames([make_mesh(n_z=n, devices=devs) for devs in (cards, [cards[0]] * n)],
+                            n)
+    for got, want in zip(*runs):
+        assert got[4].tolist() == want[4].tolist()
+        assert _same(got[:4], want[:4]) and torch.equal(got[5], want[5])
+
+
+@pytest.mark.cuda
+def test_frame_step_on_card_matches_the_cpu(cuda):
+    """make_frame_step over a (1 scene x 4 z) mesh of one card (kernel A's
+    slab form) against the same mesh on CPU devices (its plain version), in
+    the configuration of _drifting_frames (the sharded pyramid and its
+    seams, the stall stop): equal iterations; psi and psi_inv, which hold
+    absolute coordinates, within 8 ulps of the largest (the pyramid's
+    resamples sum in another order on the card), tsdf and weight within
+    1e-5."""
+    from sobfu_tpu_torch.parallel import make_mesh
+
+    runs = _drifting_frames([make_mesh(n_z=4, devices=[dev] * 4)
+                             for dev in (cuda, torch.device("cpu"))], 4)
+    ulps = 8 * float(np.spacing(np.float32(63)))  # the (64, 32, 32) grid's largest coordinate
+    for got, want in zip(*runs):
+        assert got[4].tolist() == want[4].tolist()
+        for g, w, tol in zip(got[:4], want[:4], (ulps, ulps, 1e-5, 1e-5)):
+            torch.testing.assert_close(g.cpu(), w, atol=tol, rtol=0)

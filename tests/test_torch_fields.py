@@ -152,7 +152,7 @@ def test_inverse_matches_jax(K, warm):
 
 
 def test_deformation_field_wrapper():
-    df = tf.DeformationField((20, 16, 12))
+    df = tf.DeformationField((20, 16, 12), device="cpu")
     assert tuple(df.data.shape) == (3, 12, 16, 20)
     df.data = df.data + 0.25
     assert df.no_nans()

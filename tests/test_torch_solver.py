@@ -120,10 +120,11 @@ def test_solver_class_verbose_prints(capsys):
     p = _params(warp_window=2)
     s = ts.Solver(p)
     assert s.inverse_warm and s.inverse_iters == 3
-    vols = [TsdfVolume(p) for _ in range(4)]
+    vols = [TsdfVolume(p, device="cpu") for _ in range(4)]
     vols[0].init_sphere((0.5, 0.5, 0.5), 0.3)
     vols[2].init_sphere((0.48, 0.5, 0.5), 0.3)
-    psi, psi_inv = DeformationField(p.volume_dims), DeformationField(p.volume_dims)
+    psi, psi_inv = (DeformationField(p.volume_dims, device="cpu"),
+                    DeformationField(p.volume_dims, device="cpu"))
     res = s.estimate_psi(vols[0], vols[1], vols[2], vols[3], psi, psi_inv)
     out = capsys.readouterr().out
     assert "iter. no. 1: data energy + w_reg * reg energy" in out
@@ -327,10 +328,11 @@ def test_stall_message_counts_every_pyramid_level(capsys):
     p = _params(warp_window=2, pyramid_levels=2, max_iter=40, stall_window=4, stall_rel=0.5,
                 momentum=0.95, alpha=0.05)
     s = ts.Solver(p)
-    vols = [TsdfVolume(p) for _ in range(4)]
+    vols = [TsdfVolume(p, device="cpu") for _ in range(4)]
     vols[0].init_sphere((0.5, 0.5, 0.5), 0.3)
     vols[2].init_sphere((0.47, 0.5, 0.5), 0.3)
-    psi, psi_inv = DeformationField(p.volume_dims), DeformationField(p.volume_dims)
+    psi, psi_inv = (DeformationField(p.volume_dims, device="cpu"),
+                    DeformationField(p.volume_dims, device="cpu"))
     res = s.estimate_psi(vols[0], vols[1], vols[2], vols[3], psi, psi_inv)
     out = capsys.readouterr().out
     assert res.coarse_iters == 40 and p.max_iter < res.iters < 2 * p.max_iter

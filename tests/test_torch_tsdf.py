@@ -141,7 +141,7 @@ def test_tsdf_volume_wrapper():
     vol = tt.TsdfVolume(p, device="cpu")
     assert vol.dims_zyx == (12, 16, 20) and tuple(vol.tsdf.shape) == (12, 16, 20)
     vol.init_sphere((0.5, 0.5, 0.5), 0.3)
-    other = tt.TsdfVolume(p)
+    other = tt.TsdfVolume(p, device="cpu")
     other.tsdf, other.weight = vol.tsdf.clone(), vol.weight.clone()
     vol.integrate_volume(other)
     assert float(vol.weight.max()) == 2.0
