@@ -2221,6 +2221,191 @@ def run_sharded_phase(torch, kernels, solver):
     return slab_row, runs
 
 
+# phase 14: the scene (PERF.md §4 "kinfu"): a 0.3 m sphere on the optical
+# axis in front of a wall, and two smaller spheres off the axis. Without them
+# the scene is symmetric under a rotation about the axis through the big
+# sphere's centre perpendicular to the wall, which no ICP can observe: on it
+# frame-to-frame tracking drifts 1.73 degrees in roll over the 8 frames.
+KINFU_SPHERES = (((0.0, 0.0, 1.5), 0.3), ((0.45, -0.3, 1.9), 0.15), ((-0.5, 0.35, 1.7), 0.12))
+KINFU_WALL_Z = 2.5
+KINFU_FRAMES = 8
+KINFU_STEP_M, KINFU_YAW_DEG = 0.005, 0.2
+
+
+def pose_error(est, true):
+    """(translation error in mm, rotation error in degrees) of an estimated
+    camera-to-world pose against the true one."""
+    d = np.linalg.inv(np.asarray(true, np.float64)) @ np.asarray(est, np.float64)
+    R = d[:3, :3]
+    s = np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return 1e3 * float(np.linalg.norm(d[:3, 3])), float(np.degrees(np.arctan2(s, np.trace(R) - 1.0)))
+
+
+class CallClock:
+    """Host seconds of each call of wrapped callables, a synchronise on
+    either side so that a call's device work is inside its time."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.secs = {}
+
+    def wrap(self, name, fn):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.secs.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+
+        return run
+
+    def ms(self, name) -> str:
+        s = self.secs.get(name, [])
+        return f"{1e3 * np.mean(s):.4f} ms x {len(s)}" if s else "no call"
+
+
+def raycast_steps(volume, pose, step) -> int:
+    """Steps of ``step`` metres along camera z that reach the volume's far
+    corner from ``pose`` (KinFu's own raycasts stop at 512)."""
+    corners = np.array([[x, y, z, 1.0] for x in (0, 1) for y in (0, 1) for z in (0, 1)])
+    corners[:, :3] *= np.asarray(volume.size)
+    cam = (np.linalg.inv(np.asarray(pose, np.float64)) @ volume.pose.astype(np.float64)
+           @ corners.T)
+    return int(np.ceil(cam[2].max() / step)) + 1
+
+
+def check_raycast_against_depth(torch, raycast, kinfu, pose_true, depth, phase):
+    """A raycast of the fused volume from KinFu's last pose against the
+    frame rendered at the true pose: of the pixels whose rendered surface
+    lies inside the volume at least 90% must hit, and there the median
+    |depth difference| must be under one voxel. Returns (hit share, median
+    mm, the raycast's ms)."""
+    p = kinfu.params()
+    vol = kinfu.tsdf()
+    vs = min(vol.voxel_sizes())
+    step = float(np.float32(p.raycast_step_factor * vs))
+    steps = raycast_steps(vol, kinfu.get_camera_pose(), step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _, _ = raycast.raycast_volume(vol, kinfu.get_camera_pose(), p.intr, p.rows, p.cols,
+                                       p.raycast_step_factor, max_steps=steps)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = got.cpu().numpy()
+    z = depth.astype(np.float64) * 1e-3
+    fx, fy, cx, cy = p.intr
+    u = np.arange(p.cols)[None, :]
+    v = np.arange(p.rows)[:, None]
+    cam = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z, np.ones_like(z)], axis=-1)
+    vol_pts = cam @ (np.linalg.inv(vol.pose.astype(np.float64)) @ pose_true).T
+    inside = (depth > 0) & np.all((vol_pts[..., :3] > 0) & (vol_pts[..., :3] < vol.size), -1)
+    hit = inside & (got > 0)
+    share = hit.sum() / max(inside.sum(), 1)
+    med = float(np.median(np.abs(got[hit] - z[hit]))) if hit.any() else float("inf")
+    log(phase, f"raycast of the fused volume from the last pose ({steps} steps, {ms:.4f} ms): "
+        f"{hit.sum()} of {inside.sum()} in-volume pixels hit ({100 * share:.2f}%), median "
+        f"|d depth| {1e3 * med:.4f} mm (one voxel {1e3 * vs:.4f} mm)")
+    check(share >= 0.9, f"{phase}: the raycast hit {100 * share:.2f}% of the in-volume pixels")
+    check(med < vs, f"{phase}: median |d depth| {1e3 * med:.4f} mm is not under one voxel")
+    return share, med, ms
+
+
+def device_kernels(torch, fn):
+    """(device kernels launched, device ms, wall ms) of one call of fn under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    device_us = tool("profile_torch_frame")._device_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if device_us(e) > 0 and "CUDA" in str(getattr(e, "device_type", ""))]
+    return sum(e.count for e in events), sum(device_us(e) for e in events) / 1e3, 1e3 * wall
+
+
+def run_kinfu(torch, kernels, frames, poses, model, phase):
+    """One KinFu run over the frames: per frame the seconds, the tracking
+    flag and the pose error; per run the stage times, the peak memory, a
+    profiled extra frame and a raycast's kernel count. Returns the launch
+    counts of the hand-written kernels over the run (none are on this path)."""
+    from sobfu_tpu_torch import kinfu as kinfu_mod
+    from sobfu_tpu_torch import raycast
+    from sobfu_tpu_torch.kinfu import KinFu, KinFuParams
+
+    p = KinFuParams.default_params()
+    p.track_against_model = model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kinfu = KinFu(p)  # no device: the card
+    check(kinfu.tsdf().tsdf.device.type == "cuda", f"{phase}: KinFu(params) is not on cuda")
+    clock = CallClock(torch)
+    kinfu.icp_.estimate_transform = clock.wrap("icp", kinfu.icp_.estimate_transform)
+    kinfu.volume_.integrate = clock.wrap("integrate", kinfu.volume_.integrate)
+    saved = kinfu_mod.raycast_volume
+    kinfu_mod.raycast_volume = clock.wrap("raycast", saved)
+    kernels.reset_launch_counts()
+    try:
+        for k, (depth, pose) in enumerate(zip(frames[:KINFU_FRAMES], poses)):
+            t0 = time.perf_counter()
+            ok = kinfu(depth)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            dt_mm, dr_deg = pose_error(kinfu.get_camera_pose(), pose)
+            log(phase, f"frame {k}: {dt:.4f} s, tracked {ok}, pose error {dt_mm:.4f} mm "
+                f"{dr_deg:.4f} deg")
+            check(ok, f"{phase}: frame {k} did not track")
+    finally:
+        kinfu_mod.raycast_volume = saved
+    counts = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dt_mm, dr_deg = pose_error(kinfu.get_camera_pose(), poses[KINFU_FRAMES - 1])
+    vs = min(kinfu.tsdf().voxel_sizes())
+    log(phase, f"icp {clock.ms('icp')}, integrate {clock.ms('integrate')}, raycast "
+        f"{clock.ms('raycast')}; peak memory {peak:.3f} GiB; final pose error "
+        f"{dt_mm:.4f} mm {dr_deg:.4f} deg (bounds {1e3 * vs:.4f} mm, 0.5 deg)")
+    check(dt_mm < 1e3 * vs and dr_deg < 0.5, f"{phase}: the final pose is off the truth")
+    vol = kinfu.tsdf()
+    check(vol.tsdf.device.type == "cuda" and bool(torch.isfinite(vol.tsdf).all())
+          and bool(torch.isfinite(vol.weight).all()), f"{phase}: the volume is not finite on cuda")
+    check(float(vol.weight.sum()) > 0, f"{phase}: nothing was integrated")
+    check(sum(counts.values()) == 0, f"{phase}: a hand-written kernel launched: {counts}")
+    _, _, ray_ms = check_raycast_against_depth(torch, raycast, kinfu, poses[KINFU_FRAMES - 1],
+                                               frames[KINFU_FRAMES - 1], phase)
+    n_kernels, dev_ms, wall_ms = device_kernels(torch, lambda: raycast.raycast_volume(
+        vol, kinfu.get_camera_pose(), p.intr, p.rows, p.cols, p.raycast_step_factor))
+    log(phase, f"one raycast at {p.cols}x{p.rows}, 512 steps: {n_kernels} device kernels, "
+        f"{dev_ms:.4f} ms device, {wall_ms:.4f} ms wall (profiled)")
+    n_kernels, dev_ms, wall_ms = device_kernels(torch, lambda: kinfu(frames[KINFU_FRAMES]))
+    log(phase, f"profiled frame {KINFU_FRAMES}: {wall_ms:.4f} ms wall, {dev_ms:.4f} ms device, "
+        f"busy {100 * dev_ms / wall_ms:.1f}%, {n_kernels} device kernels")
+    return counts
+
+
+def run_kinfu_phase(torch, kernels):
+    """Phase 14: KinFu at KinFuParams.default_params() (640x480, 512^3)
+    over KINFU_FRAMES frames of a static scene from a camera moving 5 mm in
+    x and 0.2 degrees in yaw a frame, frame-to-frame and then frame-to-model.
+    Returns the launch counts of both runs."""
+    from sobfu_tpu_torch.kinfu import KinFuParams
+
+    render = tool("render_rigid_scene")
+    p = KinFuParams.default_params()
+    poses = render.trajectory(KINFU_FRAMES + 1, KINFU_STEP_M, KINFU_YAW_DEG)
+    frames = [render.render_depth(T, p.rows, p.cols, p.intr, spheres=KINFU_SPHERES,
+                                  wall_z=KINFU_WALL_Z) for T in poses]
+    log("kinfu", f"{p.cols}x{p.rows}, {p.volume_dims[0]}^3 of {p.volume_size[0]} m, ICP "
+        f"{p.icp_iter_num}; {KINFU_FRAMES} frames, {1e3 * KINFU_STEP_M} mm and "
+        f"{KINFU_YAW_DEG} deg a frame; TF32 matmuls {torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "kinfu: TF32 matmuls are on")
+    return [run_kinfu(torch, kernels, frames, poses, False, "kinfu f2f"),
+            run_kinfu(torch, kernels, frames, poses, True, "kinfu f2m")]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2233,6 +2418,8 @@ def main(argv=None) -> int:
                     help="stop after the build, the kernel checks and the goldens")
     ap.add_argument("--sharded", action="store_true",
                     help="run the build and phase 13 (sharded) alone")
+    ap.add_argument("--kinfu", action="store_true",
+                    help="run the build and phase 14 (kinfu) alone")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2262,6 +2449,9 @@ def main(argv=None) -> int:
         return 0
     if args.sharded:
         run_sharded_phase(torch, kernels, solver)
+        return 0
+    if args.kinfu:
+        run_kinfu_phase(torch, kernels)
         return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
@@ -2293,6 +2483,7 @@ def main(argv=None) -> int:
     runs.extend(run_cli_phase(torch, kernels, ini))
     results["gd_iteration_slab"], sharded = run_sharded_phase(torch, kernels, solver)
     runs.extend(sharded)
+    runs.extend(run_kinfu_phase(torch, kernels))
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}

@@ -1,6 +1,7 @@
 """Field math: trilinear sampling, stencils, warps, deformation fields.
 
-PyTorch counterpart of ``sobfu_tpu.fields`` (main-path subset). Layouts are
+PyTorch counterpart of ``sobfu_tpu.fields`` (every function of it but the
+TPU layout helpers and the hybrid window+exact sampler). Layouts are
 the JAX package's:
   * scalar volumes are ``f32[Z, Y, X]``; the flat index of voxel (x, y, z)
     is ``(z * Y + y) * X + x``.
@@ -332,6 +333,25 @@ def neg_laplacian(field: torch.Tensor) -> torch.Tensor:
     """Negated 6-neighbour Laplacian, per-axis term zero on that axis's
     boundary slices (vector_fields.cu:291-337); f32[..., Z, Y, X]."""
     return -(second_diff(field, -1) + second_diff(field, -2) + second_diff(field, -3))
+
+
+def interpolate_gradient(tsdf: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """Gradient of a tsdf sampled at psi: (grad tsdf) o psi -> f32[3,Z,Y,X]
+    (the reference's interpolate_gradient, vector_fields.cu:210-240)."""
+    return sample_field_trilinear(tsdf_gradient(tsdf), psi)
+
+
+def interpolate_laplacian(field: torch.Tensor, psi: torch.Tensor) -> torch.Tensor:
+    """Negated Laplacian of a field sampled at psi (vector_fields.cu:242-272)."""
+    return sample_field_trilinear(neg_laplacian(field), psi)
+
+
+def warp_tsdf(tsdf: torch.Tensor, weight: torch.Tensor, psi: torch.Tensor):
+    """phi o psi: (tsdf, weight) sampled at the absolute coordinates in psi,
+    trilinear for the tsdf and floor-corner for the weight (the reference's
+    apply_kernel, vector_fields.cu:81-100). Plain torch on any device;
+    :meth:`DeformationField.apply` runs the same rule through kernel B."""
+    return sample_trilinear(tsdf, psi), sample_nearest_floor(weight, psi)
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,19 @@ def reg_energy_sobolev(psi: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.sum(J * J)
 
 
+def window_guard_margin(psi: torch.Tensor, K: int = 1) -> torch.Tensor:
+    """Scalar margin (voxels) by which psi's displacement stays inside the
+    window-K sampler's exactness interval (-K, K+1) per component
+    (``sobfu_tpu.solver.window_guard_margin``): positive = every sample
+    exact, negative = the window warp clamped somewhere. Its recipe: redo a
+    frame at K+1 when the margin is under 0.5. Nothing in the frame loop
+    calls it, in either package."""
+    disp = fields.displacement(psi)
+    lo = torch.min(disp) - float(-K)  # distance above -K
+    hi = float(K + 1) - torch.max(disp)  # distance below K+1
+    return torch.minimum(lo, hi)
+
+
 def max_update_norm(updates: torch.Tensor):
     """(max ||update||, flat argmax index) over f32[3,Z,Y,X] (reductor.cu:342-455)."""
     norm_sq = torch.sum(updates * updates, dim=0).reshape(-1)
@@ -349,6 +362,7 @@ def estimate_psi_pyramid(
     *,
     levels: int = 2,
     coarse_max_iter: Optional[int] = None,
+    coarse_thresh_scale: float = COARSE_THRESH_SCALE,
     record_energy: bool = False,
     energy_cap: int = 0,
     inverse_iters: int = 48,
@@ -370,7 +384,8 @@ def estimate_psi_pyramid(
     from the incoming displacement; only the fine level runs the inverse
     and the tail warps. ``iters`` counts every level's iterations
     (``coarse_iters`` the coarse share). coarse_max_iter caps each coarse
-    level (None: max_iter).
+    level (None: max_iter); level L stops at max_update_norm_thresh *
+    coarse_thresh_scale^L.
 
     fused: the accelerator dispatch (``Solver.fused``; JAX's fused_db). A
     coarse level where JAX would run ``fused_gd_multi_fold``
@@ -392,6 +407,7 @@ def estimate_psi_pyramid(
         tsdf_global, tsdf_n, psi - ident_f, levels, taps, alpha, w_reg,
         max_iter if coarse_max_iter is None else coarse_max_iter,
         max_update_norm_thresh, warp_window=warp_window, momentum=momentum, fused=fused,
+        thresh_scale=coarse_thresh_scale,
     )
     fine = dict(
         record_energy=record_energy,
@@ -418,7 +434,8 @@ def estimate_psi_pyramid(
 
 
 def _coarse_levels(tsdf_global, live, disp, levels, taps, alpha, w_reg, max_iter,
-                   max_update_norm_thresh, *, warp_window, momentum, fused):
+                   max_update_norm_thresh, *, warp_window, momentum, fused,
+                   thresh_scale=COARSE_THRESH_SCALE):
     """The coarse levels of a pyramid: those of :func:`estimate_psi_pyramid`
     and the increment pyramid of :func:`estimate_psi_compositive`
     (sobfu_tpu/solver.py:1000-1065, 1705-1743).
@@ -428,7 +445,7 @@ def _coarse_levels(tsdf_global, live, disp, levels, taps, alpha, w_reg, max_iter
     displacement at full resolution, is downsampled to the coarsest level
     (None: zero there); each level's result is upsampled with its
     displacement doubled to warm-start the next. A level stops at
-    ``thresh * 0.5^L`` or after max_iter, with the metric-scaled window
+    ``thresh * thresh_scale^L`` or after max_iter, with the metric-scaled window
     K_c = ceil(K / 2^L), no stall detector and no tails; where JAX would
     run ``fused_gd_multi_fold`` (:func:`runs_gd_multi`) it runs kernel E in
     chunks of 16 iterations. Returns (the full-resolution displacement that
@@ -452,7 +469,7 @@ def _coarse_levels(tsdf_global, live, disp, levels, taps, alpha, w_reg, max_iter
         dims_c = tuple(tn_c.shape)
         ident_c = fields.identity_field(dims_c, device=live.device)
         thresh_c = float(
-            np.float32(max_update_norm_thresh) * np.float32(COARSE_THRESH_SCALE ** lev)
+            np.float32(max_update_norm_thresh) * np.float32(thresh_scale ** lev)
         )
         K_c = max(1, -(-int(warp_window) // (2 ** lev))) if warp_window is not None else None
         res_c = estimate_psi(
@@ -507,6 +524,9 @@ def estimate_psi_compositive(
     inner_steps: int = 0,
     inv_coarse: bool = False,
     pyramid_levels: int = 1,
+    coarse_max_iter: Optional[int] = None,
+    inv_window_iters: int = INV_WINDOW_ITERS,
+    inv_refine_iters: int = INV_REFINE_ITERS,
 ) -> SolveResult:
     """Compositive-update solve (``sobfu_tpu.solver.estimate_psi_compositive``):
     psi = psi0 o (id + delta), so each iteration samples the pre-warped live
@@ -520,8 +540,9 @@ def estimate_psi_compositive(
     largest coordinate per iteration), and kernel A or E runs it unchanged.
     The energy rows keep the increment convention (the regulariser of
     delta). pyramid_levels > 1: the increment pyramid, coarse levels from
-    ZERO displacement against T0 downsampled (:func:`_coarse_levels`), the
-    fine loop seeded from id + their displacement.
+    ZERO displacement against T0 downsampled (:func:`_coarse_levels`, each
+    capped at coarse_max_iter, None: max_iter), the fine loop seeded from
+    id + their displacement.
 
     total_window: the total deformation is known to stay within it (the
     fine level of a pyramid): T0 is sampled in that window, kernel F
@@ -552,8 +573,8 @@ def estimate_psi_compositive(
     g0, total_coarse = ident, 0
     if pyramid_levels > 1:
         disp, total_coarse = _coarse_levels(
-            tsdf_global, t0, None, pyramid_levels, taps, alpha, w_reg, max_iter,
-            max_update_norm_thresh, warp_window=K, momentum=momentum, fused=fused,
+            tsdf_global, t0, None, pyramid_levels, taps, alpha, w_reg,
+            max_iter if coarse_max_iter is None else coarse_max_iter, max_update_norm_thresh, warp_window=K, momentum=momentum, fused=fused,
         )
         g0 = ident + disp
     # the loop's first warp seeds tnp: B at K on T0 (T0 itself at the identity)
@@ -597,9 +618,11 @@ def estimate_psi_compositive(
         else:
             # psi_new^-1 = g^-1 o psi0^-1: g is window-bounded, so its inverse
             # runs in the window; dq = id - g^-1 is sampled at psi_inv0
-            dq = ident - kernels.inverse_fixed_point(g, INV_WINDOW_ITERS, K)
-            inv = psi_inv0 - kernels.warp_field3(dq, psi_inv0, None)
-            psi_inv = kernels.inverse_fixed_point(psi_new, INV_REFINE_ITERS, None, init=inv)
+            dq = ident - kernels.inverse_fixed_point(g, inv_window_iters, K)
+            psi_inv = psi_inv0 - kernels.warp_field3(dq, psi_inv0, None)
+            if inv_refine_iters:
+                psi_inv = kernels.inverse_fixed_point(psi_new, inv_refine_iters, None,
+                                                      init=psi_inv)
         g_inv = tails_skipped if skip_inv_warps else tails(psi_inv, None)
         weight_n_psi = kernels.warp(weight_n[None], psi_new, None, (True,))[0]
     return SolveResult(

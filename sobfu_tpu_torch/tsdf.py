@@ -1,4 +1,4 @@
-"""TSDF volumes: projective integration, volume fusion, the sphere fixture.
+"""TSDF volumes: projective integration, volume fusion, analytic SDFs.
 
 PyTorch counterpart of ``sobfu_tpu.tsdf``. State is a pair of tensors
 ``tsdf: f32[Z,Y,X]`` (normalised to [-1, 1]) and ``weight: f32[Z,Y,X]`` on
@@ -147,6 +147,57 @@ def init_sphere(dims_zyx, voxel_sizes_xyz, centre_xyz, radius, trunc_dist, eta, 
     return _truncate(sdf, np.float32(trunc_dist)), w
 
 
+def _centered_coords(dims_zyx, voxel_sizes_xyz, device=None) -> torch.Tensor:
+    """Voxel centres relative to the volume's centre."""
+    Z, Y, X = dims_zyx
+    vsx, vsy, vsz = voxel_sizes_xyz
+    c = torch.tensor(np.asarray([X / 2.0 * vsx, Y / 2.0 * vsy, Z / 2.0 * vsz], np.float32),
+                     device=device)
+    return voxel_centers(dims_zyx, voxel_sizes_xyz, device=device) - c[:, None, None, None]
+
+
+def _norm0(a: torch.Tensor) -> torch.Tensor:
+    """sqrt of the sum of squares over axis 0 (``jnp.linalg.norm(a, axis=0)``)."""
+    return torch.sqrt(torch.sum(a * a, dim=0))
+
+
+def _ones(dims_zyx, device):
+    return torch.ones(tuple(dims_zyx), dtype=torch.float32, device=device)
+
+
+def init_box(dims_zyx, voxel_sizes_xyz, half_extent_xyz, trunc_dist, device=None):
+    """SDF of an axis-aligned box centred in the volume (tsdf_volume.cu:181-213)."""
+    vc = _centered_coords(dims_zyx, voxel_sizes_xyz, device)
+    b = torch.tensor(np.asarray(half_extent_xyz, np.float32), device=device)
+    d = torch.abs(vc) - b[:, None, None, None]
+    outside = _norm0(torch.clamp(d, min=0.0))
+    inside = torch.clamp(torch.amax(d, dim=0), max=0.0)
+    return _truncate(inside + outside, np.float32(trunc_dist)), _ones(dims_zyx, device)
+
+
+def init_ellipsoid(dims_zyx, voxel_sizes_xyz, radii_xyz, trunc_dist, device=None):
+    """Approximate ellipsoid SDF (tsdf_volume.cu:215-247)."""
+    vc = _centered_coords(dims_zyx, voxel_sizes_xyz, device)
+    r = torch.tensor(np.asarray(radii_xyz, np.float32), device=device)[:, None, None, None]
+    k0 = _norm0(vc / r)
+    k1 = _norm0(vc / (r * r))
+    return _truncate(k0 * (k0 - 1.0) / k1, np.float32(trunc_dist)), _ones(dims_zyx, device)
+
+
+def init_plane(dims_zyx, voxel_sizes_xyz, z_plane, trunc_dist, device=None):
+    """SDF of the plane z = z_plane, NOT centred (tsdf_volume.cu:277-301)."""
+    vc = voxel_centers(dims_zyx, voxel_sizes_xyz, device=device)
+    return _truncate(vc[2] - np.float32(z_plane), np.float32(trunc_dist)), _ones(dims_zyx, device)
+
+
+def init_torus(dims_zyx, voxel_sizes_xyz, major_r, minor_r, trunc_dist, device=None):
+    """SDF of a torus in the x-z plane, centred (tsdf_volume.cu:303-334)."""
+    vc = _centered_coords(dims_zyx, voxel_sizes_xyz, device)
+    q = torch.sqrt(vc[0] * vc[0] + vc[2] * vc[2]) - np.float32(major_r)
+    sdf = torch.sqrt(q * q + vc[1] * vc[1]) - np.float32(minor_r)
+    return _truncate(sdf, np.float32(trunc_dist)), _ones(dims_zyx, device)
+
+
 class TsdfVolume:
     """Reference kfusion::cuda::TsdfVolume surface (dims/size (X, Y, Z);
     arrays [Z, Y, X] on ``device``, the card by default)."""
@@ -193,3 +244,38 @@ class TsdfVolume:
             self.dims_zyx, self.voxel_sizes(), centre_xyz, radius,
             self.trunc_dist, self.eta, device=self.device,
         )
+
+    def init_box(self, half_extent_xyz) -> None:
+        self.tsdf, self.weight = init_box(
+            self.dims_zyx, self.voxel_sizes(), half_extent_xyz, self.trunc_dist, self.device
+        )
+
+    def init_ellipsoid(self, radii_xyz) -> None:
+        self.tsdf, self.weight = init_ellipsoid(
+            self.dims_zyx, self.voxel_sizes(), radii_xyz, self.trunc_dist, self.device
+        )
+
+    def init_plane(self, z_plane) -> None:
+        self.tsdf, self.weight = init_plane(
+            self.dims_zyx, self.voxel_sizes(), z_plane, self.trunc_dist, self.device
+        )
+
+    def init_torus(self, major_r, minor_r) -> None:
+        self.tsdf, self.weight = init_torus(
+            self.dims_zyx, self.voxel_sizes(), major_r, minor_r, self.trunc_dist, self.device
+        )
+
+    def apply_affine(self, affine: np.ndarray) -> None:
+        """Compose an affine onto the volume pose (reference applyAffine)."""
+        self.pose = (np.asarray(affine, np.float32) @ self.pose).astype(np.float32)
+
+    def swap(self, other: "TsdfVolume") -> None:
+        """Exchange voxel data with another volume (reference swap)."""
+        self.tsdf, other.tsdf = other.tsdf, self.tsdf
+        self.weight, other.weight = other.weight, self.weight
+
+    def print_sdf_values(self, z: int = None) -> None:
+        """Print the tsdf values of one z-slice, the middle one by default
+        (reference print_sdf_values, tsdf_volume.cpp:148-163)."""
+        z = self.dims_zyx[0] // 2 if z is None else int(z)
+        print(self.tsdf[z].cpu().numpy())

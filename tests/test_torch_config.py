@@ -57,7 +57,8 @@ def test_tpu_extension_keys_parse_the_same(tmp_path):
 
 def test_port_imports_no_jax():
     """The port never imports jax or sobfu_tpu (whose __init__ pulls in jax),
-    nor does the port's CLI gate tool."""
+    nor do the port's CLI gate tool, the rigid scene renderer and
+    chip_smoke.py."""
     code = (
         "import sys, importlib.util, sobfu_tpu_torch, sobfu_tpu_torch.cli, "
         "sobfu_tpu_torch.ops.kernels, sobfu_tpu_torch.mc, sobfu_tpu_torch.io, "
@@ -65,10 +66,13 @@ def test_port_imports_no_jax():
         "sobfu_tpu_torch.pipeline, sobfu_tpu_torch.ops._build, sobfu_tpu_torch.parallel, "
         "sobfu_tpu_torch.parallel.zshard, sobfu_tpu_torch.tsdf, sobfu_tpu_torch.fields, "
         "sobfu_tpu_torch.utils.checkpoint, sobfu_tpu_torch.viz, sobfu_tpu_torch.viewer, "
-        "sobfu_tpu_torch.native\n"
-        "spec = importlib.util.spec_from_file_location('gate', "
-        "'tools/validate_torch_cli_scene.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "sobfu_tpu_torch.native, sobfu_tpu_torch.icp, sobfu_tpu_torch.raycast, "
+        "sobfu_tpu_torch.kinfu, sobfu_tpu_torch.models, sobfu_tpu_torch.reductor, "
+        "sobfu_tpu_torch.scalar_fields, sobfu_tpu_torch.ops.imgproc\n"
+        "for name, path in (('gate', 'tools/validate_torch_cli_scene.py'), "
+        "('scene', 'tools/render_rigid_scene.py'), ('smoke', 'chip_smoke.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'sobfu_tpu' or m.startswith('sobfu_tpu.')]\n"
         "assert not bad, bad\n"
@@ -127,3 +131,17 @@ def test_cli_unported_flags_exit_with_error(flag, capsys):
     with pytest.raises(FileNotFoundError, match="should contain 'color' and 'depth'"):
         cli.main(["no_scene", INIS[0], flag])
     assert "not ported" not in capsys.readouterr().err
+
+
+def test_check_accelerator_and_profile_trace(tmp_path):
+    """core.check_accelerator is torch.cuda.is_available(); profile_trace
+    writes a Chrome trace of the enclosed code into its directory."""
+    from sobfu_tpu_torch import core
+
+    assert core.check_accelerator() is torch.cuda.is_available()
+    out = tmp_path / "trace"
+    with core.profile_trace(str(out)) as d:
+        assert d == str(out)
+        torch.ones(64).cumsum(0)
+    text = (out / "trace.json").read_text()
+    assert "traceEvents" in text and "cumsum" in text

@@ -337,3 +337,94 @@ def test_stall_message_counts_every_pyramid_level(capsys):
     out = capsys.readouterr().out
     assert res.coarse_iters == 40 and p.max_iter < res.iters < 2 * p.max_iter
     assert f"SOLVER STOPPED ON DATA-ENERGY STALL AFTER {res.iters} ITERATIONS" in out
+
+
+@pytest.mark.parametrize("amp,K", [(0.3, 1), (1.7, 1), (2.6, 2), (0.0, 2)])
+def test_window_guard_margin_matches_jax(amp, K):
+    """min over components of (disp + K, K + 1 - disp): the same f32
+    subtractions of the same extremes, bit for bit."""
+    rng = np.random.default_rng(int(amp * 10) + K)
+    ident = np.asarray(jf.identity_field(DIMS))
+    psi = (ident + rng.uniform(-amp, amp, ident.shape)).astype(np.float32)
+    got = ts.window_guard_margin(torch.from_numpy(psi), K)
+    want = js.window_guard_margin(jnp.asarray(psi), K)
+    assert got.shape == () and float(got) == float(want)
+    assert (float(got) > 0) == (amp < K)
+
+
+def _jax_spied_pyramid(jargs, **kw):
+    """JAX's estimate_psi_pyramid and the iterations of each level's solve."""
+    level_iters, orig = [], js.estimate_psi
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        level_iters.append(int(out.iters))
+        return out
+
+    js.estimate_psi = spy  # estimate_psi_pyramid calls it through the module
+    try:
+        return js.estimate_psi_pyramid(*jargs, fused_db=False, **kw), level_iters
+    finally:
+        js.estimate_psi = orig
+
+
+def test_pyramid_coarse_thresh_scale_matches_jax():
+    """coarse_thresh_scale=0.25 stops the coarse level at thresh / 4 where
+    the default 0.5 stops it at thresh / 2: the port's coarse and fine
+    iterations equal JAX's under both, and the fields within 1e-5."""
+    kw = dict(levels=2, warp_window=2, momentum=0.95, stall_window=16, stall_rel=1e-2,
+              inverse_iters=3)
+    args, jargs = list(_fixture(0.110)), list(_jax_fixture(0.110))
+    args[6:10] = 0.05, 0.2, 200, 4e-3
+    jargs[6:10] = jnp.float32(0.05), jnp.float32(0.2), jnp.int32(200), jnp.float32(4e-3)
+    coarse = {}
+    for scale in (0.5, 0.25):
+        port = ts.estimate_psi_pyramid(*args, coarse_thresh_scale=scale, **kw)
+        want, (c, f) = _jax_spied_pyramid(jargs, coarse_thresh_scale=scale, **kw)
+        assert (port.coarse_iters, port.iters - port.coarse_iters) == (c, f)
+        assert port.iters == int(want.iters) < 400
+        np.testing.assert_allclose(port.psi.numpy(), np.asarray(want.psi), atol=1e-5)
+        np.testing.assert_allclose(port.tsdf_n_psi.numpy(), np.asarray(want.tsdf_n_psi),
+                                   atol=1e-5)
+        coarse[scale] = c
+    assert coarse[0.25] > coarse[0.5]  # the tighter coarse threshold runs longer
+
+
+@pytest.mark.parametrize("window,refine", [(4, 1), (16, 2), (3, 0)])
+def test_compositive_inverse_iterations_match_jax(window, refine):
+    """The incremental inverse of estimate_psi_compositive with
+    inv_window_iters / inv_refine_iters (JAX's solver.py:1660-1680) at 16^3:
+    psi0 has drifted 1.5 voxels; psi_inv within 2e-5 of JAX's (the exact
+    samples of a drifted field: an ulp of a coordinate moves the blend)."""
+    rng = np.random.default_rng(5)
+    ident = np.asarray(jf.identity_field(DIMS))
+    disp0 = np.zeros_like(ident)
+    disp0[0] = 1.5
+    disp0 += rng.uniform(-0.2, 0.2, ident.shape).astype(np.float32)
+    psi0, psi_inv0 = (ident + disp0).astype(np.float32), (ident - disp0).astype(np.float32)
+    base, jbase = _fixture(0.125 + 1.9 * VS), _jax_fixture(0.125 + 1.9 * VS)
+    kw = dict(warp_window=2, momentum=0.9, inverse_iters=4, inv_window_iters=window,
+              inv_refine_iters=refine)
+    T = torch.from_numpy
+    port = ts.estimate_psi_compositive(T(psi0), *base[1:8], 24, -1.0, T(psi_inv0), **kw)
+    want = js.estimate_psi_compositive(jnp.asarray(psi0), *jbase[1:8], jnp.int32(24),
+                                       jnp.float32(-1.0), jnp.asarray(psi_inv0), **kw)
+    assert port.iters == int(want.iters) == 24
+    np.testing.assert_allclose(port.psi.numpy(), np.asarray(want.psi), atol=2e-5)
+    np.testing.assert_allclose(port.psi_inv.numpy(), np.asarray(want.psi_inv), atol=2e-5)
+    if (window, refine) != (16, 2):  # the knobs change the inverse
+        default = ts.estimate_psi_compositive(T(psi0), *base[1:8], 24, -1.0, T(psi_inv0),
+                                              warp_window=2, momentum=0.9, inverse_iters=4)
+        assert float((default.psi_inv - port.psi_inv).abs().max()) > 1e-4
+
+
+def test_compositive_coarse_max_iter_matches_jax():
+    """The increment pyramid's coarse level capped at 5 iterations, as
+    JAX's coarse_max_iter caps it."""
+    base, jbase = _fixture(0.125 + 1.2 * VS), _jax_fixture(0.125 + 1.2 * VS)
+    kw = dict(warp_window=2, momentum=0.9, inverse_iters=3, pyramid_levels=2,
+              coarse_max_iter=5)
+    port = ts.estimate_psi_compositive(*base[:8], 20, -1.0, **kw)
+    want = js.estimate_psi_compositive(*jbase[:8], jnp.int32(20), jnp.float32(-1.0), **kw)
+    assert port.coarse_iters == 5 and port.iters == int(want.iters) == 25
+    np.testing.assert_allclose(port.psi.numpy(), np.asarray(want.psi), atol=2e-5)

@@ -9,6 +9,7 @@ import sys
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sobfu_tpu import tsdf as jt
@@ -147,3 +148,67 @@ def test_tsdf_volume_wrapper():
     assert float(vol.weight.max()) == 2.0
     vol.clear()
     assert float(vol.weight.abs().max()) == 0.0
+
+
+INIT_DIMS = [(16, 16, 16), (20, 24, 28)]
+
+
+@pytest.mark.parametrize("dims", INIT_DIMS)
+def test_analytic_initialisers_match_jax(dims):
+    """init_box / init_ellipsoid / init_plane / init_torus at 16^3 and a
+    non-cubic grid: the same f32 operations in the same order, an ulp of
+    a norm's sum apart at most (held at 1e-6); weights all ones."""
+    vs = (0.3 / dims[2], 0.3 / dims[1], 0.3 / dims[0])
+    trunc = 5 * vs[0]
+    cases = [
+        ("init_box", ((0.06, 0.08, 0.05), trunc)),
+        ("init_ellipsoid", ((0.09, 0.06, 0.07), trunc)),
+        ("init_plane", (0.13, trunc)),
+        ("init_torus", (0.08, 0.03, trunc)),
+    ]
+    for name, args in cases:
+        want = getattr(jt, name)(dims, vs, *args)
+        got = getattr(tt, name)(dims, vs, *args, device="cpu")
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-6, err_msg=name)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert float(got[0].min()) < 0 < float(got[0].max()), name  # a surface inside
+
+
+def test_volume_inits_affine_swap_and_print(capsys):
+    """TsdfVolume.init_* against the JAX volume's, apply_affine, swap and
+    print_sdf_values."""
+    from sobfu_tpu.config import Params as JParams
+    from sobfu_tpu_torch.config import Params
+
+    p, jp = Params(), JParams()
+    for q in (p, jp):
+        q.volume_dims, q.volume_size = (20, 16, 12), (0.4, 0.32, 0.24)
+        q.tsdf_trunc_dist, q.eta = 0.06, 0.02
+        q.volume_pose = translation_pose((-0.2, -0.16, 0.3))
+    vol, jvol = tt.TsdfVolume(p, device="cpu"), jt.TsdfVolume(jp)
+    for name, args in (("init_box", ((0.1, 0.08, 0.05),)), ("init_ellipsoid", ((0.1, 0.07, 0.06),)),
+                       ("init_plane", (0.1,)), ("init_torus", (0.1, 0.03))):
+        getattr(vol, name)(*args)
+        getattr(jvol, name)(*args)
+        np.testing.assert_allclose(vol.tsdf.numpy(), np.asarray(jvol.tsdf), atol=1e-6, err_msg=name)
+        np.testing.assert_array_equal(vol.weight.numpy(), np.asarray(jvol.weight))
+        assert vol.tsdf.device.type == "cpu"
+    A = np.eye(4, dtype=np.float32)
+    A[:3, :3] = [[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
+    A[:3, 3] = (0.1, 0.2, -0.05)
+    vol.apply_affine(A)
+    jvol.apply_affine(A)
+    assert vol.pose.dtype == np.float32
+    np.testing.assert_array_equal(vol.pose, jvol.pose)
+    other = tt.TsdfVolume(p, device="cpu")
+    other.init_sphere((0.2, 0.16, 0.12), 0.05)
+    a_t, b_t = vol.tsdf, other.tsdf
+    vol.swap(other)
+    assert vol.tsdf is b_t and other.tsdf is a_t
+    jvol.tsdf = jnp.asarray(vol.tsdf.numpy())
+    outs = []
+    for call in (lambda: vol.print_sdf_values(), lambda: vol.print_sdf_values(6),
+                 lambda: jvol.print_sdf_values(3), lambda: vol.print_sdf_values(3)):
+        call()
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[2] == outs[3]  # the middle slice by default; JAX's text
