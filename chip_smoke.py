@@ -126,13 +126,21 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 its plain version (atol 1e-5) and against the whole-volume A
                 launch bit for bit: 128^3, 7 taps, K=2, momentum 0.95 in 2,
                 4 and 8 slabs (halos cut by _halo_exchange_z), 64^3 exact
-                (live whole) and K=1 in 4, (12, 16, 20) in 2; its times at
-                128^3 / 4 slabs per slab and per iteration of GdSlabLoop
-                beside the whole-volume A. (b) make_sharded_estimate_psi on
-                make_mesh(n_z=4) at 128^3, fused, momentum 0.9, warm
-                inverse, K=2, 40 iterations, against solver.estimate_psi:
-                equal iterations, psi and tnp within 2e-5, the max norm
-                within rtol 1e-4, |d psi_inv| <= 0.05; pyramid_levels=2
+                (live whole) and K=1 in 4, (12, 16, 20) in 2; the loop
+                (kernels.GdSlabLoop) at 128^3 in 2, 4 and 8 slabs of the
+                card, as one card group and forced into one group a slab,
+                bit for bit with GdLoop on the whole volume (iterations,
+                norm rows, psi, tnp, vel; the energy per slab, bit for bit
+                between the two layouts, rtol 1e-5 from GdLoop's), one
+                launch per group and iteration; the times at 128^3 / 4
+                slabs of an iteration of the loop in both layouts, of one
+                slab a call and of the whole-volume A through GdLoop, with
+                the loop's kernel calls an iteration. (b)
+                make_sharded_estimate_psi on make_mesh(n_z=4) at 128^3,
+                fused, momentum 0.9, warm inverse, K=2, 40 iterations,
+                against solver.estimate_psi: equal iterations, psi and tnp
+                within 2e-5, the max norm within rtol 1e-4, |d psi_inv| <=
+                0.05; pyramid_levels=2
                 against estimate_psi_pyramid (coarse cap 12): fine
                 iterations within max(4, 15%), energy <= 1.05x; fine_window=1
                 against estimate_psi_compositive (psi within 8 ulps of the
@@ -142,8 +150,9 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 configuration (one level), the dry-run configuration's seams
                 printed; then 256^3, 2 drifting spheres, 3 frames (seconds,
                 iterations, host reads, halo bytes per iteration, a
-                profiled frame's busy share, peak memory). (d) one 512^3
-                frame on make_mesh(n_z=8), MAX_ITER 32 a level: 0
+                profiled frame's busy share and the slab form's device
+                time in it, peak memory). (d) one 512^3 frame on
+                make_mesh(n_z=8), MAX_ITER 32 a level: its seconds, 0
                 whole-volume gathers, peak memory. Only A's slab form may
                 launch on these paths
 The launch counts of each path are zeroed just before it and read just
@@ -1241,9 +1250,11 @@ def run_multiscene(torch, kernels, S, n_frames, phase):
                 last=(frames[n_frames], v2c, scalars))
 
 
-def profile_step(torch, run, phase):
+def profile_step(torch, run, phase, kernel=None):
     """The last frame's step again, from the state before it, under
-    torch.profiler: (wall seconds, device seconds, busy share)."""
+    torch.profiler: (wall seconds, device seconds). kernel: a tuple of
+    names whose device time is printed apart (their profiler keys hold
+    one of them)."""
     from torch.profiler import ProfilerActivity, profile
 
     device_us = tool("profile_torch_frame")._device_us
@@ -1259,6 +1270,10 @@ def profile_step(torch, run, phase):
     log(phase, f"profiled last frame: {1e3 * wall:.4f} ms wall, {1e3 * busy:.4f} ms device, "
         f"busy {100 * busy / wall:.1f}%; the longest: " + "; ".join(
             f"{key[:40]} {us / 1e3:.4f} ms in {n}" for us, n, key in per_kernel[:5]))
+    if kernel is not None:
+        mine = [(us, n) for us, n, key in per_kernel if any(k in key for k in kernel)]
+        log(phase, f"profiled last frame: {'/'.join(kernel)} {sum(u for u, _ in mine) / 1e3:.4f} "
+            f"ms device in {sum(n for _, n in mine)} launches")
     return wall, busy
 
 
@@ -1797,12 +1812,17 @@ def check_gd_slab(torch, kernels, solver):
     energy) and against the whole-volume A launch bit for bit (psi', tnp',
     vel' of the slab's rows, the max norm over the slabs): 128^3, 7 taps,
     K=2, momentum 0.95 in 2, 4 and 8 slabs; the exact mode (live whole) and
-    K=1 at 64^3 in 4 slabs; (12, 16, 20), K=2, 5 taps in 2 slabs. Then the
-    times at 128^3 / 4 slabs: one slab a call, and an iteration of
-    kernels.GdSlabLoop (4 launches and the halo exchange), beside the
-    whole-volume A. Returns the report row."""
-    from sobfu_tpu_torch.parallel import zshard
-
+    K=1 at 64^3 in 4 slabs; (12, 16, 20), K=2, 5 taps in 2 slabs. Then
+    kernels.GdSlabLoop against kernels.GdLoop (check_gd_slab_loop) and the
+    times at 128^3 / 4 slabs: an iteration of the loop (one card group: a
+    launch an iteration, 16 a call), of the same loop with one group a slab
+    (the first form's layout: a launch per slab and iteration, the halo rows
+    copied), one slab a call, and the whole-volume A through GdLoop. One
+    group launch at those shapes against its plain version on the group's
+    inputs (atol 1e-5 on the state, rtol 1e-5 on the norm). Returns the
+    report row: the group launch an iteration, its error the larger of that
+    and the slabs', its bound over the rows it reads, the rest under
+    "also"."""
     worst = 0.0
     for dims, n_taps, K, mu, splits in (((DIM,) * 3, 7, 2, 0.95, (2, 4, 8)),
                                         ((DIM // 2,) * 3, 7, None, 0.9, (4,)),
@@ -1835,52 +1855,185 @@ def check_gd_slab(torch, kernels, solver):
             check(err <= 1e-5 and rel <= 1e-5, "gd_iteration_slab disagrees with its plain version")
             check(bit, "gd_iteration_slab differs from the whole-volume A launch")
             worst = max(worst, err)
-    # the times at 128^3 in 4 slabs, K=2, momentum 0.95
     d = gd_inputs(torch, (DIM,) * 3, 31, 1.8, scenes=1)
     taps = torch.as_tensor(solver.sobolev_filter_1d(TAPS, LAMBDA), device=d["psi"].device)
-    args, zb, lz0 = slab_inputs(torch, d, 4, 2)[1]
-    call = (*args, taps, 0.05, 0.2, 0.95, 2, zb, DIM, lz0)
-    times = timed(lambda: kernels.gd_iteration_slab(*call))
-    plain = plain_ms(lambda: kernels.gd_iteration_slab_plain(*call))
-    devs = [d["psi"].device] * 4
-    psi_l, tnp_l = zshard._split(d["psi"], devs), zshard._split(d["tnp"], devs)
-    tg_p = zshard._halo_exchange_z(zshard._split(d["tg"], devs), zshard.H)
-    live_p = zshard._halo_exchange_z(zshard._split(d["live"], devs), zshard.H)
-    loop = kernels.GdSlabLoop(psi_l, tnp_l, tg_p, live_p, taps, 0.05, 0.2, 0.95, 2, -1.0, DIM)
+    check_gd_slab_loop(torch, kernels, d, taps)
+    # the times at 128^3 in 4 slabs, K=2, momentum 0.95, an iteration through
+    # chunks of 16: the whole-volume A and the group in turns (A, group,
+    # group, A, A, group), each from a fresh loop (a launch's time follows
+    # the state it reaches), the median of each (the profiler now and then
+    # records a part of a run's kernels), then the loop of one group a slab
     on = np.ones(1, bool)
     n = kernels.GD_CHUNK
-    it = {"ms": cuda_ms(lambda: loop.run(n, on), reps=4) / n,
-          "device_ms": device_ms(lambda: loop.run(n, on), reps=4) / n}
-    whole = timed_chunks(kernels, "gd_iteration", d["psi"], d["tnp"], d["tg"], d["live"], taps,
-                         0.05, 0.2, 0.95, 2)
-    per_it = loop.halo_bytes // loop.iterations
-    log("sharded", f"gd_iteration_slab at 128^3 / 4 slabs, K=2, momentum 0.95: one slab a call "
-        f"{times['ms']:.4f} ms, {times['device_ms']:.4f} ms device (plain {plain:.4f} ms); an "
-        f"iteration of GdSlabLoop (4 launches, {per_it} bytes of halo rows exchanged) "
-        f"{it['ms']:.4f} ms, {it['device_ms']:.4f} ms device; the whole-volume A an iteration "
-        f"through GdLoop {whole['ms']:.4f} ms, {whole['device_ms']:.4f} ms device")
+    makers = {"whole": lambda: kernels.GdLoop("gd_iteration", d["psi"], d["tnp"], d["tg"],
+                                              d["live"], taps, 0.05, 0.2, 0.95, 2, -1.0),
+              "group": lambda: slab_loop(kernels, d, taps, 4, -1.0),
+              "one group a slab": lambda: slab_loop(kernels, d, taps, 4, -1.0, per_slab=True)}
+    turns = {label: [] for label in makers}
+    for label in ("whole", "group", "group", "whole", "whole", "group", "one group a slab"):
+        loop = makers[label]()
+        t = {"ms": cuda_ms(lambda: loop.run(n, on), reps=4) / n,
+             "device_ms": device_ms(lambda: loop.run(n, on), reps=4) / n}
+        if label != "whole":
+            t["calls_per_iteration"] = loop.calls / loop.iterations
+            t["halo_bytes_per_iteration"] = loop.halo_bytes // loop.iterations
+        turns[label].append(t)
+    it = {label: {k: type(v)(np.median([t[k] for t in ts])) for k, v in ts[0].items()}
+          for label, ts in turns.items()}
+    whole = it["whole"]
+    args, zb, lz0 = slab_inputs(torch, d, 4, 2)[1]
+    call = (*args, taps, 0.05, 0.2, 0.95, 2, zb, DIM, lz0)
+    one = timed(lambda: kernels.gd_iteration_slab(*call))
+    one_plain = plain_ms(lambda: kernels.gd_iteration_slab_plain(*call))
     out = kernels.gd_iteration_slab(*call)
-    Zl = DIM // 4
-    return row(worst, times, plain, slab_bytes(args, out, TAPS, 2),
-               Zl * DIM * DIM * gd_ops(TAPS, True, True, False))
+    one_row = row(worst, one, one_plain, slab_bytes(args, out, TAPS, 2, zb, DIM),
+                  DIM // 4 * DIM * DIM * gd_ops(TAPS, True, True, False))
+    # the group launch's plain version and bound: its buffers in, its own rows out
+    g, H = makers["group"](), kernels.SLAB_HALO
+    g_args = (*g.bufs[0][0], g.tg[0], g.live[0])
+    g_call = (*g_args, taps, 0.05, 0.2, 0.95, 2, g.z_base[0], DIM, g.live_z0[0])
+    plain = plain_ms(lambda: kernels.gd_iteration_slab_plain(*g_call))
+    own = tuple(t[..., H:-H, :, :] for t in g.bufs[0][0])
+    # one group launch at these shapes against its plain version on the same inputs
+    ref = kernels.gd_iteration_slab_plain(*g_call)
+    g_max = g.run(1, on)[1][0]
+    g_state = [torch.cat(ts, dim=-3) for ts in zip(*g.state())]
+    g_err = max(max_abs(a, b) for a, b in zip(g_state, ref[:3]))
+    g_rel = float(abs(g_max[0] - ref[3][0].item()) / max(abs(ref[3][0].item()), 1e-30))
+    log("sharded", f"gd_iteration_slab at 128^3 / 4 slabs, one group launch (4 slabs, K=2, "
+        f"momentum 0.95): max|d| from the plain version {g_err:.3e}, rel d(max_sq) {g_rel:.3e}")
+    check(g_err <= 1e-5 and g_rel <= 1e-5,
+          "sharded (a): the group launch disagrees with its plain version")
+    grp, per = it["group"], it["one group a slab"]
+    log("sharded", "gd_iteration_slab at 128^3 / 4 slabs, K=2, momentum 0.95, an iteration, in "
+        "turns (ms / device ms): the whole-volume A " + ", ".join(
+            f"{t['ms']:.4f} / {t['device_ms']:.4f}" for t in turns["whole"]) + "; the group "
+        + ", ".join(f"{t['ms']:.4f} / {t['device_ms']:.4f}" for t in turns["group"]))
+    log("sharded", f"gd_iteration_slab at 128^3 / 4 slabs, K=2, momentum 0.95, an iteration: "
+        f"GdSlabLoop as one card group {grp['ms']:.4f} ms, {grp['device_ms']:.4f} ms device, "
+        f"{grp['calls_per_iteration']:.4f} kernel calls and {grp['halo_bytes_per_iteration']} "
+        f"halo bytes an iteration (plain {plain:.4f} ms); as one group a slab {per['ms']:.4f} "
+        f"ms, {per['device_ms']:.4f} ms device, {per['calls_per_iteration']:.4f} calls and "
+        f"{per['halo_bytes_per_iteration']} halo bytes an iteration; one slab a call "
+        f"{one['ms']:.4f} ms, {one['device_ms']:.4f} ms device (plain {one_plain:.4f} ms); the "
+        f"whole-volume A through GdLoop {whole['ms']:.4f} ms, {whole['device_ms']:.4f} ms "
+        f"device (medians of the turns); the group over the whole-volume A: "
+        f"{grp['device_ms'] / whole['device_ms']:.4f}x device, {grp['ms'] / whole['ms']:.4f}x "
+        "wall")
+    check(grp["calls_per_iteration"] == 1 / n and grp["halo_bytes_per_iteration"] == 0,
+          "sharded (a): the loop of one card group made more than one call a chunk or copied "
+          "halo rows")
+    report = row(max(worst, g_err), grp, plain,
+                 slab_bytes(g_args, own, TAPS, 2, g.z_base[0], DIM),
+                 DIM ** 3 * gd_ops(TAPS, True, True, False))
+    report["also"] = {"one_slab_call": one_row, "gd_slab_loop_one_group_a_slab": per,
+                      "gd_loop_whole_volume": whole,
+                      "calls_per_iteration": grp["calls_per_iteration"]}
+    return report
 
 
-def slab_bytes(args, out, n_taps, K) -> int:
-    """The bytes one launch of A's slab form must move on a slab away from
-    the volume's ends: the rows it reads — psi and tnp at the dU positions
-    (the slab's rows and r = n_taps // 2 on either side) and one row beyond
-    for the differences, Zl + 2(r + 1); tg at the dU positions, Zl + 2r; vel
-    at the slab's own rows (with momentum); live the slab's rows and K on
-    either side (the whole volume for the exact warp, K None) — and its
-    own-row outputs. The halo rows the buffers hold past these are never
-    read."""
+def slab_loop(kernels, d, taps, n_z, thresh, energy=False, per_slab=False, momentum=0.95):
+    """kernels.GdSlabLoop over n_z slabs of the card of d (gd_inputs, one
+    scene; the halo rows of tg and live filled by the halo exchange), K=2:
+    one card group, or with per_slab card_groups patched to one group a
+    slab (the first form's layout)."""
+    from sobfu_tpu_torch.parallel import zshard
+
+    devs = [d["psi"].device] * n_z
+    groups = kernels.card_groups
+    if per_slab:
+        groups = lambda devices: [(j, j + 1) for j in range(len(devices))]  # noqa: E731
+    with patched((kernels, "card_groups", groups)):
+        return kernels.GdSlabLoop(
+            zshard._split(d["psi"], devs), zshard._split(d["tnp"], devs),
+            zshard._halo_exchange_z(zshard._split(d["tg"], devs), zshard.H),
+            zshard._halo_exchange_z(zshard._split(d["live"], devs), zshard.H), taps, 0.05, 0.2,
+            momentum, 2, thresh, DIM, energy=energy)
+
+
+def check_gd_slab_loop(torch, kernels, d, taps):
+    """Phase 13 (a): kernels.GdSlabLoop at DIM^3 in 2, 4 and 8 slabs of the
+    card (one card group) and, as a check of the path between groups, the
+    same forced into one group a slab, against kernels.GdLoop on the whole
+    volume, K=2, in two runs: a chunk of 16 without momentum with a norm
+    stop inside it (thresh a norm of the first 12 under all before it: the
+    norms of momentum 0.95 rise over the first iterations), and two chunks
+    of 16 with momentum 0.95 and no stop, the first with the energy. The
+    iterations, the norm rows and psi, tnp and vel bit for bit; one launch
+    per group and
+    iteration that ran; one call and one host read a chunk for one group.
+    The energy is per slab (its tile partials and fixed-order sum over the
+    slab's rows; the host sums the slabs): bit for bit between the two
+    layouts, within rtol 1e-5 of GdLoop's whole-volume sum (another
+    summation order)."""
+    on = np.ones(1, bool)
+    args = (d["psi"], d["tnp"], d["tg"], d["live"], taps, 0.05, 0.2)
+    norms = np.sqrt(kernels.GdLoop("gd_iteration", *args, None, 2, -1.0).run(16, on)[1][:, 0])
+    j = max(k for k in range(12) if k == 0 or norms[k] < norms[:k].min())
+    runs = {"stop": (None, float(norms[j]), (False,)), "energy": (0.95, -1.0, (True, False))}
+
+    def drive(loop, chunks):
+        kernels.reset_launch_counts()
+        got = [loop.run(16, on, with_energy=e) for e in chunks]
+        return got, dict(kernels.launch_counts), dict(kernels.empty_launches), \
+            kernels.host_reads["gd_iteration_slab"]
+
+    want = {}
+    for name, (mu, thresh, chunks) in runs.items():
+        whole = kernels.GdLoop("gd_iteration", *args, mu, 2, thresh, energy=True)
+        want[name] = ([whole.run(16, on, with_energy=e) for e in chunks], whole.state())
+    for n_z in (2, 4, 8):
+        energies, msg = [], []
+        for per_slab in (False, True):
+            for name, (mu, thresh, chunks) in runs.items():
+                loop = slab_loop(kernels, d, taps, n_z, thresh, True, per_slab, mu)
+                got, counts, empty, reads = drive(loop, chunks)
+                (w_chunks, w_state), groups = want[name], len(loop.groups)
+                ran = sum(int(w[0][0]) for w in w_chunks)
+                bit = all(g[0].tolist() == w[0].tolist() and np.array_equal(g[1], w[1])
+                          for g, w in zip(got, w_chunks))
+                bit = bit and all(bitwise(torch.cat([s[k] for s in loop.state()], dim=-3), w)
+                                  for k, w in enumerate(w_state) if w is not None)
+                counted = (counts["gd_iteration_slab"] == groups * ran
+                           and empty["gd_iteration_slab"] == groups * (16 * len(chunks) - ran)
+                           and reads == len(chunks))
+                if name == "energy":
+                    energies.append(got[0][2])
+                msg.append(f"{groups} group(s), {name} ({ran} iterations): bit for bit {bit}, "
+                           f"{loop.calls} calls, launches {counts['gd_iteration_slab']}, empty "
+                           f"{empty['gd_iteration_slab']}, halo bytes {loop.halo_bytes}")
+                check(bit, f"sharded (a): GdSlabLoop in {n_z} slabs, {groups} group(s), "
+                      "differs from GdLoop on the whole volume")
+                check(counted and (groups > 1 or loop.calls == len(chunks)),
+                      f"sharded (a): GdSlabLoop in {n_z} slabs miscounted its launches or calls")
+        e_whole = float(want["energy"][0][0][2][0])
+        rel = abs(float(energies[0][0]) - e_whole) / abs(e_whole)
+        same = energies[0].tobytes() == energies[1].tobytes()
+        log("sharded", f"(a) GdSlabLoop {DIM}^3 in {n_z} slabs against GdLoop, the stop at "
+            f"iteration {j + 1}: " + "; ".join(msg) + f"; energy {float(energies[0][0]):.9e}, "
+            f"the same bits in both layouts {same}, rel d from GdLoop's {rel:.3e}")
+        check(same and rel <= 1e-5, "sharded (a): GdSlabLoop's energy disagrees")
+
+
+def slab_bytes(args, out, n_taps, K, z_base, z_global) -> int:
+    """The bytes one launch of A's slab form must move: the rows it reads —
+    psi and tnp at the dU positions (its own rows and r = n_taps // 2 on
+    either side) and one row beyond for the differences; tg at the dU
+    positions; vel at its own rows (with momentum); live its own rows and K
+    on either side (the whole volume for the exact warp, K None), each
+    clamped into the z_global-deep volume — and its own-row outputs. The
+    halo rows the buffers hold past these are never read."""
     from sobfu_tpu_torch.parallel import zshard
 
     psi, tnp, vel, tg, live = args
     S, _, rows, Y, X = psi.shape
     Zl, r = rows - 2 * zshard.H, n_taps // 2
-    read = 4 * (Zl + 2 * (r + 1)) + Zl + 2 * r + (3 * Zl if out[2] is not None else 0)
-    read += live.shape[-3] if K is None else Zl + 2 * K
+
+    def span(h: int) -> int:  # rows [z_base - h, z_base + Zl + h) inside the volume
+        return min(z_base + Zl + h, z_global) - max(z_base - h, 0)
+
+    read = 4 * span(r + 1) + span(r) + (3 * Zl if out[2] is not None else 0)
+    read += live.shape[-3] if K is None else span(K)
     return S * Y * X * psi.element_size() * read + nbytes(*out[:3])
 
 
@@ -2173,7 +2326,8 @@ def check_sharded_frame_step(torch, kernels):
     sharded_counts(kernels, f"sharded (c) {DRIFT_DIM}^3", counts[-1])
     check(all(bool(torch.isfinite(x).all()) for x in state), "sharded (c): non-finite state")
     run = dict(step=step, prev=prev, last=(frames[n_frames], v2c, scalars))
-    profile_step(torch, run, f"sharded (c) {DRIFT_DIM}^3")
+    profile_step(torch, run, f"sharded (c) {DRIFT_DIM}^3",
+                 kernel=("gd_fused_kernel", "energy_partials_kernel", "energy_final_kernel"))
     return counts
 
 

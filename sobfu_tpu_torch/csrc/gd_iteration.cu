@@ -103,24 +103,45 @@
 // so scene s of a batch equals a one-scene launch on it bit for bit. One
 // scene runs the kScenes = false instantiation, the scene index a constant.
 //
-// The slab form (sobfu_gd_slab_iteration, the kSlab instantiation) replaces
+// The slab form (sobfu_gd_slab_iterations, the kSlab instantiation) replaces
 // the z_base / z_global contract of fused_gd_iteration_db_padded (:1075,
 // body :848-850) and fused_gd_iteration_fold_padded (:1704), the per-shard
-// kernel of the z-sharded solve (sobfu_tpu/parallel/sharding.py:216, :249):
-// one z-slab of a z-sharded volume, its state with H = 4 halo rows of the
-// neighbouring slabs on either side. Each dU position's row is clamped
-// into the volume in global z (p + z_base against z_global) and read at
-// that row's place in the slab's buffer; the boundary masks, the voxel's
-// coordinate and the live gather's clamp are global too, and the gather's
-// global row is moved into live's rows as an integer (live is the slab and
-// its halo, or the whole volume for the exact warp). So each voxel
-// computes what the whole-volume launch computes for it, bit for bit, and
-// the launch's stop test reads the previous iteration's max norm of every
-// slab (the sharded solve's pmax). Bound: bytes, as A's (the slab's state,
-// tg and live with their halo rows in, its own rows out); a 32-row slab's
-// plan marches segments of 4 planes, so it recomputes more halo dU than A's
-// 16-plane segments. One launch per slab and iteration is the first form:
-// all slabs of a card in one launch, with a z_base per slab, is later work.
+// kernel of the z-sharded solve (sobfu_tpu/parallel/sharding.py:216, :249).
+// JAX launches it once per shard and iteration; here one launch covers a
+// card group, the run of consecutive z-slabs that lie on one card: its rows
+// in one buffer with H = 4 halo rows on either side, so a slab's
+// neighbours' rows inside the group are read in place and only the rows at
+// the group's ends are copied from other cards between iterations. Each dU
+// position's row is clamped into the volume in global z (p + z_base against
+// z_global) and read at that row's place in the group's buffer; the
+// boundary masks, the voxel's coordinate and the live gather's clamp are
+// global too, and the gather's global row is moved into live's rows as an
+// integer (live is the group and its halo, or the whole volume for the
+// exact warp). So each voxel computes what the whole-volume launch computes
+// for it, bit for bit. A call enqueues n launches, the stop test on the
+// card as sobfu_gd_iterations does it; launch k tests the max over the
+// norm words of every group of the volume (the sharded solve's pmax) and
+// writes its own group's. On one card the whole z axis is one group: a
+// chunk of 16 iterations is one call and one host read, the plan A's (LZ =
+// 16, 512 blocks at 128^3). On several cards each card's group runs one
+// launch an iteration and the host copies the halo rows and the norm words
+// between cards. The energy stays per slab (the tile partials over each
+// slab's own rows, blockIdx.z the slab; one fixed-order sum per slab), so
+// the host's sum over the slabs has the bits of one launch per slab.
+// Bound: bytes, as A's (the group's state, tg and live with the rows the
+// stencils reach in, its own rows out). The first form launched once per
+// slab and iteration, its halo rows copied between slabs: a 32-row slab of
+// 128^3 / 4 marched 4-plane segments (3.44 dU positions a voxel against
+// 2.31 at LZ 16), 16 host enqueues an iteration. Measured on an H100 80GB
+// HBM3 at 700 W (tools/bench_torch_kernels.py, the two forms in turns), an
+// iteration at 128^3 in 4 slabs of one card, K=2, momentum 0.95: 0.2029 -
+// 0.2096 -> 0.1253 - 0.1254 device ms and 0.38 - 0.61 -> 0.140 - 0.141 ms
+// of wall, against 0.1251 - 0.1257 device ms for the whole-volume A
+// through its loop: the group launch costs what A's costs, 32% of its
+// bound with momentum; what is left is the march (A's header above). The
+// gain needs several slabs on one card. make_mesh's default layout puts
+// one slab on each card: there every group is one slab, and an iteration
+// is the first form's launch and copies.
 #include "gd_step.cuh"
 
 namespace sobfu {
@@ -139,14 +160,14 @@ struct GdArgs {
   float thresh;
   MarchShape m;
   int copy_frozen;  // a frozen scene's blocks copy its state to the other buffer
-  // the slab form: prev_max holds [n_slabs][S] words, the max bits of every
-  // slab of the volume; live holds live_Z rows per scene
-  int n_slabs, live_Z;
+  // the slab form: prev_max holds [n_groups][S] words, the max bits of every
+  // card group of the volume; live holds live_Z rows per scene
+  int n_groups, live_Z;
 };
 
 // Whether scene s runs this launch and the iterations it has done; block 0
 // of the scene writes the next row. kSlab: the norm tested is the max over
-// the n_slabs slabs of the volume (the sharded solve's pmax).
+// the n_groups card groups of the volume (the sharded solve's pmax).
 template <bool kSlab>
 __device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) {
   const int v = a.ctl_in[s];
@@ -156,7 +177,7 @@ __device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) 
   if (on && a.prev_max != nullptr) {
     float mx = __uint_as_float(a.prev_max[s]);
     if (kSlab)
-      for (int j = 1; j < a.n_slabs; ++j)
+      for (int j = 1; j < a.n_groups; ++j)
         mx = nan_max(__uint_as_float(a.prev_max[j * gridDim.y + s]), mx);
     on = __fsqrt_rn(mx) > a.thresh;
   }
@@ -166,8 +187,8 @@ __device__ __forceinline__ bool gd_scene_on(const GdArgs& a, int s, int* count) 
 }
 
 // kSlab: the slab form (gd_march's kSlab). psi, tnp, vel and tg are the
-// slab's rows with m.H halo rows on either side (S scenes of m.Z + 2 m.H
-// rows), live S scenes of live_Z rows.
+// card group's rows with m.H halo rows on either side (S scenes of m.Z + 2
+// m.H rows), live S scenes of live_Z rows.
 template <int NT, bool kScenes, bool kSlab>
 __global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
   extern __shared__ float ring[];  // [3][NT + 1][kTileY + 2r][kTileX + 2r]
@@ -219,40 +240,51 @@ __global__ void __launch_bounds__(kBlock, 4) gd_fused_kernel(const GdArgs a) {
 // the partial kernel E forms for the same tile (gd_multi.cu). ctl is row n:
 // a scene that ran the last launch has c >= 0 and its tnp' in buffer c & 1;
 // a frozen scene's partials are 0. A scene's N voxels start stride floats
-// after the previous scene's (the slab form: its rows inside the halo).
+// after the previous scene's; the slab form: blockIdx.z is a slab of the
+// card group, whose N voxels start slab_stride floats after the previous
+// slab's (the pointers at the group's first own row). Partials [z][S][x].
 template <bool kScenes>
 __global__ void __launch_bounds__(kBlock)
     energy_partials_kernel(const float* tnp0, const float* tnp1, const float* __restrict__ tg,
                            const int* __restrict__ ctl, float* __restrict__ e_partials,
-                           unsigned N, size_t stride) {
+                           unsigned N, size_t stride, size_t slab_stride) {
   const int s = kScenes ? (int)blockIdx.y : 0;
   const int c = ctl[s];
   const unsigned i = blockIdx.x * kBlock + threadIdx.x;
   float e2 = 0.0f;
   if (c >= 0 && i < N) {
-    const float* tnp = ((c & 1) != 0 ? tnp1 : tnp0) + stride * s;
-    const float d = tg[stride * s + i] - tnp[i];
+    const size_t o = stride * s + slab_stride * blockIdx.z;
+    const float* tnp = ((c & 1) != 0 ? tnp1 : tnp0) + o;
+    const float d = tg[o + i] - tnp[i];
     e2 = d * d;
   }
   const float sum = block_sum(e2);
-  if (threadIdx.x == 0) e_partials[(size_t)gridDim.x * s + blockIdx.x] = sum;
+  if (threadIdx.x == 0)
+    e_partials[((size_t)blockIdx.z * gridDim.y + s) * gridDim.x + blockIdx.x] = sum;
 }
 
 // 0.5 * the sum of n tile partials, by one block in a fixed order; block b
-// sums the partials of scene b (n per scene) into out[b].
+// sums partials [b n, (b + 1) n) into out[b]: b = slab * S + s, scene s of
+// the group's slab `slab` (the slab 0 but for the slab form).
 __global__ void energy_final_kernel(const float* __restrict__ partials, long long n,
                                     float* __restrict__ out) {
   const float s = sum_partials(partials + blockIdx.x * n, n);
   if (threadIdx.x == 0) out[blockIdx.x] = 0.5f * s;
 }
 
+// A call of n launches. max_sq holds a row of n_groups * S words per launch
+// (n_groups = 1 but for the slab form); launch k ORs its max bits into word
+// `group` of row k, and tests the row before it (for k = 0, prev: the row
+// of the previous call's last launch, or null).
 struct GdCall {
   GdArgs a;
   int* ctl;
   float* max_sq;
+  const unsigned int* prev;
   float* e_partials;
   float* e_data;
-  int n, S;
+  int n, S, group;
+  int n_slabs;  // the energy is per slab: n_slabs of the group's m.Z rows
   cudaStream_t stream;
 };
 
@@ -263,76 +295,59 @@ constexpr size_t gd_smem_bytes() {
 }
 
 // The tile partials and the fixed-order sum of the energy after a call's last
-// launch, whose ctl row is ctl_n (energy_partials_kernel, energy_final_kernel).
+// launch, whose ctl row is ctl_n (energy_partials_kernel, energy_final_kernel),
+// for S scenes of n_slabs slabs of N voxels: e_data[slab][S].
 template <bool kScenes>
 int gd_energy(const float* tnp0, const float* tnp1, const float* tg, const int* ctl_n,
-              float* e_partials, float* e_data, unsigned N, size_t stride, int S,
+              float* e_partials, float* e_data, unsigned N, size_t stride, int n_slabs, int S,
               cudaStream_t stream) {
   const int n_tiles = blocks_for(N);
-  energy_partials_kernel<kScenes><<<dim3(n_tiles, S), kBlock, 0, stream>>>(
-      tnp0, tnp1, tg, ctl_n, e_partials, N, stride);
+  energy_partials_kernel<kScenes><<<dim3(n_tiles, S, n_slabs), kBlock, 0, stream>>>(
+      tnp0, tnp1, tg, ctl_n, e_partials, N, stride, N);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  energy_final_kernel<<<S, kBlock, 0, stream>>>(e_partials, n_tiles, e_data);
+  energy_final_kernel<<<S * n_slabs, kBlock, 0, stream>>>(e_partials, n_tiles, e_data);
   return (int)cudaGetLastError();
 }
 
-template <int NT, bool kScenes>
-int gd_iterations_launch(GdCall c) {
+template <int NT, bool kScenes, bool kSlab>
+int gd_launches(GdCall c) {
   GdArgs& a = c.a;
   constexpr size_t smem = gd_smem_bytes<NT>();
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes, false>,
+  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes, kSlab>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(c.max_sq, 0, sizeof(float) * c.n * c.S, c.stream);
+  const size_t row = (size_t)a.n_groups * c.S;  // words a launch's norm row
+  unsigned int* rows = reinterpret_cast<unsigned int*>(c.max_sq);
+  unsigned int* mine = rows + (size_t)c.group * c.S;
+  // zero this call's words of each row; another group's are left alone
+  err = a.n_groups == 1
+            ? cudaMemsetAsync(mine, 0, sizeof(float) * c.n * c.S, c.stream)
+            : cudaMemset2DAsync(mine, sizeof(float) * row, 0, sizeof(float) * c.S, c.n, c.stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.m.tiles_x * a.m.tiles_y * a.m.segs, c.S);
-  unsigned int* rows = reinterpret_cast<unsigned int*>(c.max_sq);
   for (int k = 0; k < c.n; ++k) {
     a.ctl_in = c.ctl + (size_t)k * c.S;
     a.ctl_out = c.ctl + (size_t)(k + 1) * c.S;
-    a.prev_max = k > 0 ? rows + (size_t)(k - 1) * c.S : nullptr;
-    a.max_bits = rows + (size_t)k * c.S;
-    gd_fused_kernel<NT, kScenes, false><<<grid, kBlock, smem, c.stream>>>(a);
+    a.prev_max = k > 0 ? rows + (size_t)(k - 1) * row : c.prev;
+    a.max_bits = mine + (size_t)k * row;
+    gd_fused_kernel<NT, kScenes, kSlab><<<grid, kBlock, smem, c.stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (c.e_partials == nullptr) return 0;
-  const unsigned N = (unsigned)a.m.Z * a.m.Y * a.m.X;
-  return gd_energy<kScenes>(a.tnp[0], a.tnp[1], a.tg, c.ctl + (size_t)c.n * c.S, c.e_partials,
-                            c.e_data, N, N, c.S, c.stream);
+  // each slab's own rows: the slab form's buffers start m.H rows before them
+  const size_t XY = (size_t)a.m.Y * a.m.X, ho = kSlab ? a.m.H * XY : 0;
+  const size_t stride = (size_t)(kSlab ? a.m.Z + 2 * a.m.H : a.m.Z) * XY;
+  return gd_energy<kScenes>(a.tnp[0] + ho, a.tnp[1] + ho, a.tg + ho, c.ctl + (size_t)c.n * c.S,
+                            c.e_partials, c.e_data, (unsigned)(a.m.Z / c.n_slabs * XY), stride,
+                            c.n_slabs, c.S, c.stream);
 }
 
-template <int NT>
-int gd_iterations_scenes(const GdCall& c) {
-  return c.S == 1 ? gd_iterations_launch<NT, false>(c) : gd_iterations_launch<NT, true>(c);
-}
-
-// One launch of the slab form, then (e_partials set) the energy of the
-// slab's own rows.
-template <int NT, bool kScenes>
-int gd_slab_launch(const GdArgs& a, int S, float* e_partials, float* e_data,
-                   cudaStream_t stream) {
-  constexpr size_t smem = gd_smem_bytes<NT>();
-  cudaError_t err = cudaFuncSetAttribute(gd_fused_kernel<NT, kScenes, true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.m.tiles_x * a.m.tiles_y * a.m.segs, S);
-  gd_fused_kernel<NT, kScenes, true><<<grid, kBlock, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || e_partials == nullptr) return (int)err;
-  const size_t XY = (size_t)a.m.Y * a.m.X, ho = (size_t)a.m.H * XY;
-  return gd_energy<kScenes>(a.tnp[0] + ho, a.tnp[1] + ho, a.tg + ho, a.ctl_out, e_partials,
-                            e_data, (unsigned)(a.m.Z * XY), (size_t)(a.m.Z + 2 * a.m.H) * XY,
-                            S, stream);
-}
-
-template <int NT>
-int gd_slab_scenes(const GdArgs& a, int S, float* e_partials, float* e_data,
-                   cudaStream_t stream) {
-  return S == 1 ? gd_slab_launch<NT, false>(a, S, e_partials, e_data, stream)
-                : gd_slab_launch<NT, true>(a, S, e_partials, e_data, stream);
+template <int NT, bool kSlab>
+int gd_launches_scenes(const GdCall& c) {
+  return c.S == 1 ? gd_launches<NT, false, kSlab>(c) : gd_launches<NT, true, kSlab>(c);
 }
 
 }  // namespace sobfu
@@ -371,81 +386,86 @@ extern "C" int sobfu_gd_iterations(float* psi0, float* psi1, float* tnp0, float*
   a.thresh = thresh;
   a.m = march_shape(Z, Y, X, K, LZ, alpha, w_reg, momentum);
   a.copy_frozen = copy_frozen;
-  a.n_slabs = 1, a.live_Z = Z;
-  c.ctl = ctl, c.max_sq = max_sq, c.e_partials = e_partials, c.e_data = e_data;
-  c.n = n, c.S = S;
+  a.n_groups = 1, a.live_Z = Z;
+  c.ctl = ctl, c.max_sq = max_sq, c.prev = nullptr;
+  c.e_partials = e_partials, c.e_data = e_data;
+  c.n = n, c.S = S, c.group = 0, c.n_slabs = 1;
   c.stream = (cudaStream_t)stream;
   switch (n_taps) {
-    case 1: return gd_iterations_scenes<1>(c);
-    case 3: return gd_iterations_scenes<3>(c);
-    case 5: return gd_iterations_scenes<5>(c);
-    case 7: return gd_iterations_scenes<7>(c);
-    case 9: return gd_iterations_scenes<9>(c);
-    case 11: return gd_iterations_scenes<11>(c);
+    case 1: return gd_launches_scenes<1, false>(c);
+    case 3: return gd_launches_scenes<3, false>(c);
+    case 5: return gd_launches_scenes<5, false>(c);
+    case 7: return gd_launches_scenes<7, false>(c);
+    case 9: return gd_launches_scenes<9, false>(c);
+    case 11: return gd_launches_scenes<11, false>(c);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// One iteration of kernel A's slab form (the z_base / z_global contract of
+// n iterations of kernel A's slab form (the z_base / z_global contract of
 // fused_gd_iteration_db_padded and fused_gd_iteration_fold_padded) on the S
-// scenes of z-slab `slab` of n_slabs: rows [z_base, z_base + Zl) of a
-// z_global-deep volume. psi0/psi1, vel0/vel1 f32[S,3,Zl+2H,Y,X], tnp0/tnp1
-// and tg f32[S,Zl+2H,Y,X]: the slab's rows with H halo rows on either side,
-// which hold the neighbouring slabs' rows (the caller exchanges them; the
-// rows past the volume's ends are never read). live f32[S,live_Z,Y,X], its
-// row 0 at global row live_z0 (its rows past the volume's ends are never
-// read): the whole volume (live_z0 = 0, live_Z = z_global; the exact warp
-// needs it) or the slab and at least K rows on either side. ctl i32[2,S] (row 0 read, row 1 written) and the iteration
-// count's buffer parity as in sobfu_gd_iterations. max_prev: null, or the
-// previous launch's max bits of every slab, [n_slabs][S]; the scene runs if
-// sqrt of their max is over thresh. The launch ORs its own max bits into
-// max_row[slab][S] (zeroed by the caller). e_partials f32[S, ceil(Zl*Y*X /
-// 256)] and e_data f32[S], or both null: the energy of the slab's rows after
-// the launch, 0 for a frozen scene. Each voxel's psi', tnp', vel' and update
-// norm equal the whole-volume launch's on the same volume bit for bit.
-// n_taps odd <= 2H - 1, 1 <= S <= 65535, (Zl + 2H)*Y*X and live_Z*Y*X
-// under 2^31.
-extern "C" int sobfu_gd_slab_iteration(float* psi0, float* psi1, float* tnp0, float* tnp1,
-                                       float* vel0, float* vel1, const float* tg,
-                                       const float* live, const float* taps, int n_taps,
-                                       float alpha, float w_reg, float momentum, float thresh,
-                                       int* ctl, const float* max_prev, float* max_row,
-                                       int slab, int n_slabs, float* e_partials, float* e_data,
-                                       int S, int Zl, int Y, int X, int H, int z_base,
-                                       int z_global, int live_z0, int live_Z, int K, int LZ,
-                                       int copy_frozen, void* stream) {
+// scenes of card group `group` of n_groups: rows [z_base, z_base + Zg) of a
+// z_global-deep volume, n_slabs z-slabs of Zg / n_slabs rows. psi0/psi1,
+// vel0/vel1 f32[S,3,Zg+2H,Y,X], tnp0/tnp1 and tg f32[S,Zg+2H,Y,X]: the
+// group's rows with H halo rows on either side, which hold the neighbouring
+// groups' rows (the caller copies them between iterations; the rows past
+// the volume's ends are never read). live f32[S,live_Z,Y,X], its row 0 at
+// global row live_z0 (its rows past the volume's ends are never read): the
+// whole volume (live_z0 = 0, live_Z = z_global; the exact warp needs it) or
+// the group and at least K rows on either side. ctl i32[n+1,S] and the
+// buffer parity as in sobfu_gd_iterations. max_rows: n rows of
+// [n_groups][S] words, a row every n_groups * S; launch k zeroes and ORs
+// its max bits into word `group` of row k and tests the max over the whole
+// row before it — for k = 0 over max_prev ([n_groups][S], the previous
+// call's last row), or no test if it is null. e_partials f32[n_slabs, S,
+// ceil(Zg/n_slabs*Y*X / 256)] and e_data f32[n_slabs, S], or both null: the
+// energy of each slab's rows after launch n - 1, 0 for a scene that did not
+// run it. Each voxel's psi', tnp', vel' and update norm equal the
+// whole-volume launch's on the same volume bit for bit. n_taps odd <= 2H -
+// 1, 1 <= S <= 65535, (Zg + 2H)*Y*X and live_Z*Y*X under 2^31.
+extern "C" int sobfu_gd_slab_iterations(float* psi0, float* psi1, float* tnp0, float* tnp1,
+                                        float* vel0, float* vel1, const float* tg,
+                                        const float* live, const float* taps, int n_taps,
+                                        float alpha, float w_reg, float momentum, float thresh,
+                                        int* ctl, const float* max_prev, float* max_rows,
+                                        int group, int n_groups, float* e_partials,
+                                        float* e_data, int n_slabs, int n, int S, int Zg, int Y,
+                                        int X, int H, int z_base, int z_global, int live_z0,
+                                        int live_Z, int K, int LZ, int copy_frozen,
+                                        void* stream) {
   using namespace sobfu;
   const long long XY = (long long)Y * X;
-  if (S < 1 || S > 65535 || Zl < 1 || XY < 1 || LZ < 1 || n_slabs < 1 || slab < 0 ||
-      slab >= n_slabs || z_base < 0 || z_base + Zl > z_global || n_taps < 1 ||
-      n_taps % 2 == 0 || H < n_taps / 2 + 1 || (Zl + 2ll * H) * XY >= (1ll << 31) ||
-      (long long)live_Z * XY >= (1ll << 31))
+  if (n < 1 || S < 1 || S > 65535 || Zg < 1 || XY < 1 || LZ < 1 || n_groups < 1 ||
+      group < 0 || group >= n_groups || n_slabs < 1 || Zg % n_slabs != 0 || z_base < 0 ||
+      z_base + Zg > z_global || n_taps < 1 || n_taps % 2 == 0 || H < n_taps / 2 + 1 ||
+      (Zg + 2ll * H) * XY >= (1ll << 31) || (long long)live_Z * XY >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   // the global rows the live gather reaches: all of them for the exact warp,
-  // the slab's and K on either side (clamped into the volume) for the window
+  // the group's and K on either side (clamped into the volume) for the window
   const int need_lo = K < 0 || z_base < K ? 0 : z_base - K;
-  const int need_hi = K < 0 || z_base + Zl + K > z_global ? z_global : z_base + Zl + K;
+  const int need_hi = K < 0 || z_base + Zg + K > z_global ? z_global : z_base + Zg + K;
   if (live_z0 > need_lo || live_z0 + live_Z < need_hi)
     return (int)cudaErrorInvalidValue;
-  GdArgs a;
+  GdCall c;
+  GdArgs& a = c.a;
   a.psi[0] = psi0, a.psi[1] = psi1;
   a.tnp[0] = tnp0, a.tnp[1] = tnp1;
   a.vel[0] = vel0, a.vel[1] = vel1;
   a.tg = tg, a.live = live, a.taps = taps;
-  a.ctl_in = ctl, a.ctl_out = ctl + S;
-  a.prev_max = reinterpret_cast<const unsigned int*>(max_prev);
-  a.max_bits = reinterpret_cast<unsigned int*>(max_row) + (size_t)slab * S;
   a.thresh = thresh;
-  a.m = march_shape(Zl, Y, X, K, LZ, alpha, w_reg, momentum);
+  a.m = march_shape(Zg, Y, X, K, LZ, alpha, w_reg, momentum);
   a.m.H = H, a.m.z_base = z_base, a.m.z_global = z_global, a.m.live_z0 = live_z0;
   a.copy_frozen = copy_frozen;
-  a.n_slabs = n_slabs, a.live_Z = live_Z;
-  const cudaStream_t st = (cudaStream_t)stream;
+  a.n_groups = n_groups, a.live_Z = live_Z;
+  c.ctl = ctl, c.max_sq = max_rows, c.prev = reinterpret_cast<const unsigned int*>(max_prev);
+  c.e_partials = e_partials, c.e_data = e_data;
+  c.n = n, c.S = S, c.group = group, c.n_slabs = n_slabs;
+  c.stream = (cudaStream_t)stream;
   switch (n_taps) {
-    case 1: return gd_slab_scenes<1>(a, S, e_partials, e_data, st);
-    case 3: return gd_slab_scenes<3>(a, S, e_partials, e_data, st);
-    case 5: return gd_slab_scenes<5>(a, S, e_partials, e_data, st);
-    case 7: return gd_slab_scenes<7>(a, S, e_partials, e_data, st);
+    case 1: return gd_launches_scenes<1, true>(c);
+    case 3: return gd_launches_scenes<3, true>(c);
+    case 5: return gd_launches_scenes<5, true>(c);
+    case 7: return gd_launches_scenes<7, true>(c);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -50,10 +50,10 @@ SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "sobfu_compose_weight": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "sobfu_gd_slab_iteration": (
+    "sobfu_gd_slab_iterations": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
-        _P, _P, _P, _I, _I, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _I, _I, _P, _P, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
 

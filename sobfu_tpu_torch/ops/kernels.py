@@ -35,9 +35,13 @@ that ran (the device's counter), under the same two names. The coarse
 pyramid level runs kernel E through :class:`GdMultiLoop`: up to
 ``GD_MULTI_LAUNCHES`` chunks of 16 iterations per call, one launch each,
 the stop rule tested on the device, one host read per call. The z-sharded
-solve runs A's slab form through :class:`GdSlabLoop`: a launch per slab and
-iteration, the halo rows exchanged between iterations, the stop test over
-all slabs on the device, one host read per chunk.
+solve runs A's slab form through :class:`GdSlabLoop` over card groups (the
+runs of consecutive slabs on one device): on one card one call of up to
+``GD_CHUNK`` launches over all its slabs and one host read per chunk; on
+several, a launch per card and iteration, the halo rows copied between
+cards. Its launches are counted per group launch that ran, under
+``gd_iteration_slab``; ``empty_launches`` counts the group launches
+enqueued after the stop.
 """
 
 from __future__ import annotations
@@ -587,6 +591,30 @@ def gd_iterations_plain(psi, tnp, vel, tg, live, taps, alpha, w_reg, momentum, K
     return psi, tnp, vel, done, rows, e
 
 
+def _chunk_start(count, active) -> torch.Tensor:
+    """A chunk's ctl start row int32[S] (host): each scene's iterations so
+    far, or -1 minus them for a scene that does not run."""
+    import numpy as np
+
+    return torch.from_numpy(np.where(active, count, -count - 1).astype(np.int32))
+
+
+def _chunk_end(kernel: str, end, count, n: int, launches: int = 1):
+    """done int32[S] of a chunk of n iterations from its ctl end row read
+    back (the card's counters) and the host's count. Each iteration that ran
+    counts as ``launches`` launches of ``kernel`` (launches are counted
+    where they happen: on the card), the rest of the chunk as empty ones."""
+    import numpy as np
+
+    done = (np.where(end >= 0, end, -end - 1) - count).astype(np.int32)
+    if end.shape != count.shape or (done < 0).any() or (done > n).any():
+        raise RuntimeError(f"kernel A's iteration counter ({kernel}) is inconsistent: {end}")
+    ran = int(done.max())
+    launch_counts[kernel] += ran * launches
+    empty_launches[kernel] += (n - ran) * launches
+    return done
+
+
 class GdLoop:
     """The state of one solve's gradient-descent loop on kernel A, advanced
     in chunks of iterations with one host read per chunk.
@@ -645,27 +673,18 @@ class GdLoop:
         else:
             if with_energy and self.parts is None:
                 raise ValueError("this GdLoop was made without energy")
-            S = active.shape[0]
             ctl, rest = self.out[:n + 1], self.out[GD_CHUNK + 1:].view(torch.float32)
             max_sq, e_dev = rest[:n], rest[GD_CHUNK]
-            start = np.where(active, self.count, -self.count - 1).astype(np.int32)
-            ctl[0].copy_(torch.from_numpy(start))
+            ctl[0].copy_(_chunk_start(self.count, active))
             _launch_gd_chunk(self.bufs, tg, live, taps, alpha, w_reg, momentum, K, thresh, ctl,
                              max_sq, self.parts, e_dev if with_energy else None, n, self.plan)
             host = self.out.cpu().numpy()
-            end = host[n]
-            done = (np.where(end >= 0, end, -end - 1) - self.count).astype(np.int32)
+            done = _chunk_end(self.kernel, host[n], self.count, n)
             rest = host[GD_CHUNK + 1:].view(np.float32)
             rows = rest[:n].copy()
             e = rest[GD_CHUNK].copy() if with_energy else None
-            if (done < 0).any() or (done > n).any() or S != end.shape[0]:
-                raise RuntimeError(f"kernel A's iteration counter is inconsistent: {end}")
         self.count += done
         host_reads[self.kernel] += 1
-        if not self.cpu:  # launches are counted where they happen: on the card
-            ran = int(done.max())
-            launch_counts[self.kernel] += ran
-            empty_launches[self.kernel] += n - ran
         return done, rows, e
 
     def state(self):
@@ -1089,27 +1108,32 @@ def _check_slab(psi, tnp, vel, tg, live, taps, momentum, K, z_base, z_global, li
 
 
 def _launch_slab(bufs, tg, live, taps, alpha, w_reg, momentum, K, thresh, ctl, max_prev,
-                 max_row, slab: int, n_slabs: int, parts, e, z_base: int, z_global: int,
-                 live_z0: int, plan: dict, copy_frozen: bool = False) -> None:
-    """Enqueue one launch of A's slab form (sobfu_gd_slab_iteration) on the
-    ping-pong buffers bufs = ((psi, tnp, vel), (psi, tnp, vel)) of one slab;
-    nothing is counted here."""
+                 max_rows, group: int, n_groups: int, parts, e, n_slabs: int, n: int,
+                 z_base: int, z_global: int, live_z0: int, plan: dict,
+                 copy_frozen: bool = False) -> None:
+    """Enqueue n launches of A's slab form (sobfu_gd_slab_iterations) on the
+    ping-pong buffers bufs = ((psi, tnp, vel), (psi, tnp, vel)) of card
+    group ``group`` of n_groups (n_slabs slabs); ctl holds rows 0..n,
+    max_rows rows 0..n-1 of [n_groups, S] words, max_prev the row before
+    (None: no test at launch 0). Nothing is counted here."""
     from sobfu_tpu_torch.ops._build import library
 
     (psi0, tnp0, vel0), (psi1, tnp1, vel1) = bufs
     S, _, Zp, Y, X = psi0.shape
-    Zl = Zp - 2 * SLAB_HALO
     dev = psi0.device
     has_vel = momentum is not None
+    for name, t, rows, words in (("ctl", ctl, n + 1, S), ("max_rows", max_rows, n, n_groups * S)):
+        if t.shape[0] < rows or t[0].numel() != words or not t.is_contiguous():
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {rows} rows of {words}")
     with torch.cuda.device(dev):
-        rc = library().sobfu_gd_slab_iteration(
+        rc = library().sobfu_gd_slab_iterations(
             psi0.data_ptr(), psi1.data_ptr(), tnp0.data_ptr(), tnp1.data_ptr(),
             vel0.data_ptr() if has_vel else None, vel1.data_ptr() if has_vel else None,
             tg.data_ptr(), live.data_ptr(), taps.data_ptr(), taps.shape[0],
             float(alpha), float(w_reg), float(momentum) if has_vel else 0.0, float(thresh),
-            ctl.data_ptr(), _ptr(max_prev), max_row.data_ptr(), slab, n_slabs,
-            _ptr(parts), _ptr(e), S, Zl, Y, X, SLAB_HALO, z_base, z_global, live_z0,
-            live.shape[-3], _K(K), plan["LZ"], int(copy_frozen),
+            ctl.data_ptr(), _ptr(max_prev), max_rows.data_ptr(), group, n_groups,
+            _ptr(parts), _ptr(e), n_slabs, n, S, Zp - 2 * SLAB_HALO, Y, X, SLAB_HALO, z_base,
+            z_global, live_z0, live.shape[-3], _K(K), plan["LZ"], int(copy_frozen),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -1152,12 +1176,12 @@ def gd_iteration_slab(psi, tnp, vel, tg, live, taps, alpha: float, w_reg: float,
     ctl = torch.zeros((2, S), dtype=torch.int32, device=dev)
     if active is not None:
         ctl[0] = torch.as_tensor(active, device=dev).to(torch.int32) - 1
-    max_row = torch.zeros((1, S), **f32)
+    max_row = torch.empty((1, S), **f32)
     parts = torch.empty((S, _n_tiles((Zl, Y, X))), **f32) if with_energy else None
     e = torch.empty((S,), **f32) if with_energy else None
     _launch_slab(((psi, tnp, vel if has_vel else None), out), tg, live, taps, alpha, w_reg,
-                 momentum, K, 0.0, ctl, None, max_row, 0, 1, parts, e, z_base, z_global, live_z0,
-                 gd_tile_plan((Zl, Y, X), taps.shape[0], _n_sm(dev)), copy_frozen=True)
+                 momentum, K, 0.0, ctl, None, max_row, 0, 1, parts, e, 1, 1, z_base, z_global,
+                 live_z0, gd_tile_plan((Zl, Y, X), taps.shape[0], _n_sm(dev)), copy_frozen=True)
     launch_counts["gd_iteration_slab"] += 1
     own = (out[0][:, :, H:H + Zl], out[1][:, H:H + Zl],
            out[2][:, :, H:H + Zl] if has_vel else None, max_row[0])
@@ -1180,6 +1204,30 @@ def _exchange_rows(slabs, H: int) -> int:
     return n
 
 
+def card_groups(devices) -> list:
+    """The card groups of a z-slab list: each run of consecutive slabs on one
+    device, as a [first, stop) pair of slab indices, in z order. A pure
+    function of the devices: ``[a, a, b, b]`` gives two groups, ``[a, b,
+    a]`` three."""
+    out = []
+    for j, d in enumerate(devices):
+        if out and devices[out[-1][0]] == d:
+            out[-1] = (out[-1][0], j + 1)
+        else:
+            out.append((j, j + 1))
+    return out
+
+
+def _join_padded(ts, H: int):
+    """Halo-padded z-slabs f32[..., Zl+2H, Y, X], consecutive in z, as one
+    buffer: their own rows, the first's lower and the last's upper halo."""
+    if len(ts) == 1:
+        return ts[0]
+    Zl = ts[0].shape[-3] - 2 * H
+    return torch.cat([ts[0][..., :H + Zl, :, :]] + [t[..., H:H + Zl, :, :] for t in ts[1:-1]]
+                     + [ts[-1][..., H:, :, :]], dim=-3)
+
+
 class GdSlabLoop:
     """The gradient-descent loop of a z-sharded solve on kernel A's slab
     form, advanced in chunks with one host read per chunk: the sharded
@@ -1191,17 +1239,25 @@ class GdSlabLoop:
     halo rows (f32[S,Zl+2H,Y,X], exchanged once per solve by the caller);
     live the same, or with K None each slab's copy of the whole volume.
     Slab j holds global rows [j Zl, (j + 1) Zl) of a z_global-deep volume.
-    On the card the state lives in a ping-pong pair of halo-padded buffers
-    per slab, allocated here once per solve; an iteration exchanges the
-    halo rows of psi and tnp (H rows each way between neighbours), then
-    launches every slab, and each launch runs a scene only if the max norm
-    of the previous iteration over ALL slabs passes the stop test (the
-    pmax). Several cards: each card holds the control rows of every slab
-    and each slab's norm words are copied to the others after its launch.
-    The host reads the outcome once per chunk; the energy is each slab's,
-    summed on the host (the psum). On the CPU the same iterations run on
-    :func:`gd_iteration_slab_plain`. ``halo_bytes`` counts the bytes the
-    exchanges copied; launches are counted per slab.
+
+    The slabs run in card groups (:func:`card_groups`, which the tests
+    patch to force another split of one device's slabs). Each group's state
+    lives in one halo-padded ping-pong pair of its rows, allocated here once
+    per solve (tg and live joined the same way), so a slab's neighbours'
+    rows inside the group are read in place. One group (the z axis on one
+    card): :meth:`run` is one call of n launches (sobfu_gd_slab_iterations),
+    each testing the stop rule on the card, and one host read. Several: per
+    iteration the halo rows of psi and tnp are copied between neighbouring
+    groups (H rows each way), each group launches once, and each group's
+    norm words are copied to the other cards, so that every card tests the
+    max over ALL groups (the pmax). Grouping saves launches and copies only
+    where several slabs share a card: the default layout of
+    ``parallel.zshard.make_mesh`` puts one slab on each card, where every
+    group is one slab. The energy is each slab's, summed on the host (the
+    psum). On the CPU the same groups run :func:`gd_iteration_slab_plain`.
+    ``halo_bytes`` counts the bytes copied between groups, ``iterations``
+    the iterations enqueued and ``calls`` the kernel calls made; launches
+    are counted per group launch.
     """
 
     def __init__(self, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, thresh,
@@ -1212,49 +1268,92 @@ class GdSlabLoop:
         self.n = len(psi)
         S, _, Zl, Y, X = psi[0].shape
         self.Zl, self.z_global = Zl, int(z_global)
-        self.z_base = [j * Zl for j in range(self.n)]
+        devs = [p.device for p in psi]
+        self.groups = card_groups(devs)
+        if [j for a, b in self.groups for j in range(a, b)] != list(range(self.n)) or any(
+                len(set(devs[a:b])) != 1 for a, b in self.groups):
+            raise ValueError(f"card groups {self.groups} do not split the slabs' devices {devs}")
+        self.dev = [devs[a] for a, _ in self.groups]
+        self.z_base = [a * Zl for a, _ in self.groups]
         self.live_z0 = [0 if K is None else zb - H for zb in self.z_base]
-        # each slab's taps on its device
-        self.taps = [taps if taps.device == p.device else taps.to(p.device) for p in psi]
-        self.args = (tg, live, alpha, w_reg, momentum, K, float(thresh))
+        # each group's taps, tg and live on its device
+        self.taps = [taps if taps.device == d else taps.to(d) for d in self.dev]
+        self.tg = [_join_padded(tg[a:b], H) for a, b in self.groups]
+        self.live = [live[a] if K is None else _join_padded(live[a:b], H) for a, b in self.groups]
+        self.args = (alpha, w_reg, momentum, K, float(thresh))
         self.count = np.zeros(S, np.int64)
-        self.halo_bytes = self.iterations = 0  # the exchanges' bytes and iterations
+        self.halo_bytes = self.iterations = self.calls = 0
         self.cpu = _on_cpu(psi[0])
         has_vel = momentum is not None
 
-        def padded(t):
-            buf = t.new_zeros(t.shape[:-3] + (Zl + 2 * H,) + t.shape[-2:])
-            buf[..., H:H + Zl, :, :] = t
+        def padded(ts):
+            buf = ts[0].new_zeros(ts[0].shape[:-3] + (len(ts) * Zl + 2 * H, Y, X))
+            for j, t in enumerate(ts):
+                buf[..., H + j * Zl:H + (j + 1) * Zl, :, :] = t
             return buf
 
-        cur = [(padded(p), padded(t), p.new_zeros(p.shape[:-3] + (Zl + 2 * H, Y, X))
-                if has_vel else None) for p, t in zip(psi, tnp)]
-        for j, t in enumerate(tg):
-            _check_slab(cur[j][0], cur[j][1], cur[j][2], t, live[j], self.taps[j], momentum, K,
-                        self.z_base[j], self.z_global, self.live_z0[j])
+        cur = []
+        for g, (a, b) in enumerate(self.groups):
+            p = padded(psi[a:b])
+            cur.append((p, padded(tnp[a:b]), torch.zeros_like(p) if has_vel else None))
+            _check_slab(*cur[g][:3], self.tg[g], self.live[g], self.taps[g], momentum, K,
+                        self.z_base[g], self.z_global, self.live_z0[g])
         if self.cpu:
             self.cur = cur
             return
         self.bufs = [(c, tuple(None if a is None else torch.empty_like(a) for a in c))
                      for c in cur]
-        self.plan = gd_tile_plan((Zl, Y, X), taps.shape[0], _n_sm(psi[0].device))
-        # per card: ctl rows 0..GD_CHUNK (int32), every slab's norm rows
-        # [GD_CHUNK][n][S] and energies [n][S] (float32 bits), read at once
-        self.devices = list(dict.fromkeys(p.device for p in psi))
+        n_sm = _n_sm(self.dev[0])
+        self.plans = [gd_tile_plan((c[1].shape[-3] - 2 * H, Y, X), taps.shape[0], n_sm)
+                      for c in cur]
+        # per card: ctl rows 0..GD_CHUNK (int32), the norm rows [GD_CHUNK][groups][S]
+        # and every slab's energies [n][S] (float32 bits), read at once
+        self.devices = list(dict.fromkeys(self.dev))
         self.ctl_rows = (GD_CHUNK + 1) * S
-        self.out = {d: torch.zeros(self.ctl_rows + (GD_CHUNK + 1) * self.n * S,
+        G = len(self.groups)
+        self.out = {d: torch.zeros(self.ctl_rows + (GD_CHUNK * G + self.n) * S,
                                    dtype=torch.int32, device=d) for d in self.devices}
-        self.parts = ([torch.empty((S, _n_tiles((Zl, Y, X))), dtype=torch.float32,
-                                   device=p.device) for p in psi] if energy else None)
+        self.parts = ([torch.empty((b - a, S, _n_tiles((Zl, Y, X))), dtype=torch.float32,
+                                   device=d) for (a, b), d in zip(self.groups, self.dev)]
+                      if energy else None)
 
     def _views(self, d, S: int):
-        """(ctl [GD_CHUNK+1, S], norm rows [GD_CHUNK, n, S], energies [n, S])
-        of card d's control buffer."""
-        out = self.out[d]
+        """(ctl [GD_CHUNK+1, S], norm rows [GD_CHUNK, groups, S], energies
+        [n, S]) of card d's control buffer."""
+        out, G = self.out[d], len(self.groups)
         rest = out[self.ctl_rows:].view(torch.float32)
         return (out[:self.ctl_rows].view(GD_CHUNK + 1, S),
-                rest[:GD_CHUNK * self.n * S].view(GD_CHUNK, self.n, S),
-                rest[GD_CHUNK * self.n * S:].view(self.n, S))
+                rest[:GD_CHUNK * G * S].view(GD_CHUNK, G, S),
+                rest[GD_CHUNK * G * S:].view(self.n, S))
+
+    def _launch(self, g: int, ctl, prev, rows, n: int, energy) -> None:
+        """n launches of group g (ctl from row 0, its norm rows from
+        rows[0], prev the row before or None); energy: the group's slabs'
+        rows of the energies, or None."""
+        alpha, w_reg, momentum, K, thresh = self.args
+        a, b = self.groups[g]
+        _launch_slab(self.bufs[g], self.tg[g], self.live[g], self.taps[g], alpha, w_reg,
+                     momentum, K, thresh, ctl, prev, rows, g, len(self.groups),
+                     None if energy is None else self.parts[g], energy, b - a, n,
+                     self.z_base[g], self.z_global, self.live_z0[g], self.plans[g])
+        self.calls += 1
+
+    def _energies_plain(self, on):
+        """Each slab's data energy f32[n, S] from the CPU groups' state (0
+        for a scene that did not run)."""
+        import numpy as np
+
+        from sobfu_tpu_torch.solver import data_energy
+
+        H, Zl = SLAB_HALO, self.Zl
+        e = np.zeros((self.n, on.shape[0]), np.float32)
+        for g, (a, b) in enumerate(self.groups):
+            tnp, tg = self.cur[g][1], self.tg[g]
+            for j in range(b - a):
+                rows = slice(H + j * Zl, H + (j + 1) * Zl)
+                for s in np.flatnonzero(on):
+                    e[a + j, s] = data_energy(tg[s, rows], tnp[s, rows]).numpy()
+        return e
 
     def run(self, n: int, active, with_energy: bool = False):
         """Up to n (<= GD_CHUNK) iterations of every slab from the current
@@ -1266,8 +1365,8 @@ class GdSlabLoop:
         if not 1 <= n <= GD_CHUNK:
             raise ValueError(f"a chunk is 1..{GD_CHUNK} iterations, got {n}")
         active = np.asarray(active, bool)
-        tg, live, alpha, w_reg, momentum, K, thresh = self.args
-        H, S = SLAB_HALO, active.shape[0]
+        alpha, w_reg, momentum, K, thresh = self.args
+        H, S, G = SLAB_HALO, active.shape[0], len(self.groups)
         counts = self.count[active]
         if counts.size and (counts != counts[0]).any():
             raise RuntimeError("the running scenes of a slab loop differ in their iterations")
@@ -1285,81 +1384,77 @@ class GdSlabLoop:
                 for field in (0, 1):
                     self.halo_bytes += _exchange_rows([c[field] for c in self.cur], H)
                 self.iterations += 1
-                last = with_energy and k == n - 1
-                outs = [gd_iteration_slab_plain(*c, tg[j], live[j], self.taps[j], alpha, w_reg,
-                                                momentum, K, self.z_base[j], self.z_global,
-                                                self.live_z0[j], torch.as_tensor(on), last)
-                        for j, c in enumerate(self.cur)]
+                outs = [gd_iteration_slab_plain(*c, self.tg[g], self.live[g], self.taps[g],
+                                                alpha, w_reg, momentum, K, self.z_base[g],
+                                                self.z_global, self.live_z0[g],
+                                                torch.as_tensor(on))
+                        for g, c in enumerate(self.cur)]
                 for c, o in zip(self.cur, outs):
                     for buf, new in zip(c, o[:3]):
                         if buf is not None:
-                            buf[..., H:H + self.Zl, :, :] = new
+                            buf[..., H:buf.shape[-3] - H, :, :] = new
                 rows[k] = np.max([o[3].numpy() for o in outs], axis=0)
                 done += on
-                if last:
-                    e = np.sum([o[4].numpy() for o in outs], axis=0, dtype=np.float32)
+                if with_energy and k == n - 1:
+                    e = self._energies_plain(on).sum(axis=0, dtype=np.float32)
         else:
             if with_energy and self.parts is None:
                 raise ValueError("this GdSlabLoop was made without energy")
-            start = torch.from_numpy(np.where(active, self.count, -self.count - 1)
-                                     .astype(np.int32))
+            start = _chunk_start(self.count, active)
             views = {d: self._views(d, S) for d in self.devices}
-            for d, (ctl, mx, _) in views.items():
+            for ctl, _, _ in views.values():
                 ctl[0].copy_(start)
-                mx.zero_()
-            for k in range(n):
-                par = (c0 + k) & 1
-                for field in (0, 1):
-                    self.halo_bytes += _exchange_rows([b[par][field] for b in self.bufs], H)
-                self.iterations += 1
-                last = with_energy and k == n - 1
-                for j, bufs in enumerate(self.bufs):
-                    ctl, mx, ev = views[bufs[0][0].device]
-                    _launch_slab(bufs, tg[j], live[j], self.taps[j], alpha, w_reg, momentum, K,
-                                 thresh,
-                                 ctl[k], mx[k - 1] if k else None, mx[k], j, self.n,
-                                 self.parts[j] if last else None, ev[j] if last else None,
-                                 self.z_base[j], self.z_global, self.live_z0[j], self.plan)
-                if len(self.devices) > 1:  # every card tests the max over all slabs
-                    for j, b in enumerate(self.bufs):
-                        src = views[b[0][0].device][1][k, j]
-                        for d in self.devices:
-                            if d != src.device:
-                                views[d][1][k, j].copy_(src)
+            if G == 1:  # the whole z axis on one card: one call, n launches
+                ctl, mx, ev = views[self.dev[0]]
+                self._launch(0, ctl, None, mx, n, ev if with_energy else None)
+                self.iterations += n
+            else:  # a launch a group and iteration, the halo rows copied between groups
+                for k in range(n):
+                    par = (c0 + k) & 1
+                    for field in (0, 1):
+                        self.halo_bytes += _exchange_rows([bufs[par][field] for bufs in self.bufs],
+                                                          H)
+                    self.iterations += 1
+                    last = with_energy and k == n - 1
+                    for g, (a, b) in enumerate(self.groups):
+                        ctl, mx, ev = views[self.dev[g]]
+                        self._launch(g, ctl[k:], mx[k - 1] if k else None, mx[k:k + 1], 1,
+                                     ev[a:b] if last else None)
+                    if len(self.devices) > 1:  # every card tests the max over all groups
+                        for g, src in enumerate(self.dev):
+                            for d in self.devices:
+                                if d != src:
+                                    views[d][1][k, g].copy_(views[src][1][k, g])
             lead = self.devices[0]
-            if last and len(self.devices) > 1:  # the energies to the first card
-                for j, b in enumerate(self.bufs):
-                    if b[0][0].device != lead:
-                        views[lead][2][j].copy_(views[b[0][0].device][2][j])
+            if with_energy and len(self.devices) > 1:  # the energies to the first card
+                for (a, b), d in zip(self.groups, self.dev):
+                    if d != lead:
+                        views[lead][2][a:b].copy_(views[d][2][a:b])
             host = self.out[lead].cpu().numpy()
-            end = host[n * S:(n + 1) * S]
-            done = (np.where(end >= 0, end, -end - 1) - self.count).astype(np.int32)
+            done = _chunk_end("gd_iteration_slab", host[n * S:(n + 1) * S], self.count, n, G)
             rest = host[self.ctl_rows:].view(np.float32)
-            rows = rest[:n * self.n * S].reshape(n, self.n, S).max(axis=1)
-            e = (rest[GD_CHUNK * self.n * S:].reshape(self.n, S).sum(axis=0, dtype=np.float32)
+            rows = rest[:n * G * S].reshape(n, G, S).max(axis=1)
+            e = (rest[GD_CHUNK * G * S:].reshape(self.n, S).sum(axis=0, dtype=np.float32)
                  if with_energy else None)
-            if (done < 0).any() or (done > n).any():
-                raise RuntimeError(f"kernel A's slab iteration counter is inconsistent: {end}")
-            ran = int(done.max())
-            launch_counts["gd_iteration_slab"] += ran * self.n
-            empty_launches["gd_iteration_slab"] += (n - ran) * self.n
         self.count += done
         host_reads["gd_iteration_slab"] += 1
         return done, rows, e
 
     def state(self):
         """Per slab, (psi f32[S,3,Zl,Y,X], tnp f32[S,Zl,Y,X], vel or None):
-        the slabs' own rows after the iterations run so far."""
+        the slabs' own rows (views of the groups' buffers) after the
+        iterations run so far."""
         H, Zl = SLAB_HALO, self.Zl
-
-        def own(t):
-            return None if t is None else t[..., H:H + Zl, :, :]
-
         if self.cpu:
-            return [tuple(own(t) for t in c) for c in self.cur]
-        par = self.count & 1
-        if (par == par[0]).all():
-            return [tuple(own(t) for t in b[int(par[0])]) for b in self.bufs]
-        return [tuple(None if x is None else own(torch.stack(
-            [(y if p else x)[s] for s, p in enumerate(par)])) for x, y in zip(*b))
-            for b in self.bufs]
+            bufs = self.cur
+        else:
+            par = self.count & 1
+            if (par == par[0]).all():
+                bufs = [b[int(par[0])] for b in self.bufs]
+            else:
+                bufs = [tuple(None if x is None else torch.stack(
+                    [(y if p else x)[s] for s, p in enumerate(par)]) for x, y in zip(*b))
+                    for b in self.bufs]
+        return [tuple(None if t is None else t[..., H + j * Zl:H + (j + 1) * Zl, :, :]
+                      for t in buf)
+                for buf, (a, b) in zip(bufs, self.groups) for j in range(b - a)]

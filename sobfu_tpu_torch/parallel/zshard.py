@@ -14,11 +14,15 @@ concatenates the slabs. A mesh may name one device several times
 (``[torch.device("cuda")] * 4`` on one card, ``["cpu"] * 4`` in the tests):
 every copy, reduction and launch then runs for real on that device.
 
-The GD loop runs kernel A's slab form (``kernels.GdSlabLoop``: a launch per
-slab and iteration, the halo rows of psi and tnp exchanged between
-iterations, the stop test over all slabs on the device, one host read per
-chunk) wherever the JAX package runs its fused per-shard kernel, and on the
-pyramid's coarse levels, where JAX runs plain XLA steps of the same numbers.
+The GD loop runs kernel A's slab form (``kernels.GdSlabLoop`` over card
+groups, the runs of consecutive slabs on one device: a launch per group and
+iteration, all the slabs of a card in one launch reading their neighbours'
+rows in place, the halo rows of psi and tnp copied only between cards, the
+stop test over all slabs on the device, one host read per chunk; on one card
+one call a chunk; :func:`make_mesh`'s default, one slab a card, makes each
+slab a group) wherever the JAX package runs its fused per-shard kernel,
+and on the pyramid's coarse levels, where JAX runs plain XLA steps of the
+same numbers.
 Without ``fused`` the fine loop runs :func:`_gd_step_local`, the plain torch
 step (the host tests the stop after each iteration). The tails (the inverse
 fixed point, the warps of tg, wg and wn, the fuse) are plain torch on the
@@ -48,8 +52,9 @@ class Mesh:
     j of the scenes of scene-shard r. Counts, from 0 or the last
     :meth:`reset_counts`: ``halo_bytes`` copied between slabs by the halo
     exchanges, of which ``loop_halo_bytes`` by the GD loops over
-    ``loop_iterations`` iterations; ``gathers``, the whole volumes gathered
-    from all slabs."""
+    ``loop_iterations`` iterations (the fused loop copies rows only between
+    card groups: none where the mesh's z axis is one card); ``gathers``, the
+    whole volumes gathered from all slabs."""
 
     def __init__(self, devices: List[List[torch.device]]):
         self.devices = devices

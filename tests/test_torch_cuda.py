@@ -777,12 +777,17 @@ def test_gd_slab_kernel_matches_whole_volume_launch(cuda, dims, n_z, K, s, momen
 
 
 @pytest.mark.cuda
-def test_gd_slab_loop_on_card_equals_whole_volume_loop(cuda):
-    """kernels.GdSlabLoop over 4 slabs of one card (the halo rows exchanged
-    between iterations, the stop test over all slabs on the card) against
-    kernels.GdLoop on the whole 32^3 volume: a norm stop inside a chunk of
-    16; the iterations, the norm rows and the state bit for bit, one host
-    read."""
+@pytest.mark.parametrize("split", ["card", "slab"])
+@pytest.mark.parametrize("n_z", [2, 4, 8])
+def test_gd_slab_loop_on_card_equals_whole_volume_loop(cuda, n_z, split, monkeypatch):
+    """kernels.GdSlabLoop over n_z slabs of one card against kernels.GdLoop
+    on the whole 32^3 volume: a norm stop inside a chunk of 16; the
+    iterations, the norm rows and psi, tnp and vel bit for bit, one host
+    read. split "card": the slabs are one card group (one call of 16
+    launches, the neighbours' rows read in place); "slab": card_groups
+    patched to one group a slab (a launch per group and iteration, the halo
+    rows and the stop test's norm words between groups). Launches are
+    counted per group launch that ran, the rest as empty."""
     from sobfu_tpu_torch.parallel import zshard
 
     rng = np.random.default_rng(8)
@@ -800,21 +805,27 @@ def test_gd_slab_loop_on_card_equals_whole_volume_loop(cuda):
     whole = kernels.GdLoop("gd_iteration_scenes", d["psi"], d["tnp"], d["tg"], d["live"], taps,
                            0.05, 0.2, 0.9, 2, float(norms[j]))
     want = whole.run(16, on)
-    devs = [cuda] * 4
+    groups = 1
+    if split == "slab":
+        groups = n_z
+        monkeypatch.setattr(kernels, "card_groups", lambda devs: [(i, i + 1) for i in range(n_z)])
+    devs = [cuda] * n_z
     loop = kernels.GdSlabLoop(
         zshard._split(d["psi"], devs), zshard._split(d["tnp"], devs),
         zshard._halo_exchange_z(zshard._split(d["tg"], devs), zshard.H),
         zshard._halo_exchange_z(zshard._split(d["live"], devs), zshard.H), taps, 0.05, 0.2, 0.9,
         2, float(norms[j]), dims[0])
+    assert len(loop.groups) == groups
     kernels.reset_launch_counts()
     got = loop.run(16, on)
     assert int(got[0][0]) == j + 1 and got[0].tolist() == want[0].tolist()
     assert np.array_equal(got[1], want[1])
-    psi = torch.cat([s[0] for s in loop.state()], dim=-3)
-    assert torch.equal(psi, whole.state()[0])
+    for k, w in enumerate(whole.state()):
+        assert torch.equal(torch.cat([s[k] for s in loop.state()], dim=-3), w)
     assert kernels.host_reads["gd_iteration_slab"] == 1
-    assert kernels.launch_counts["gd_iteration_slab"] == 4 * (j + 1)
-    assert kernels.empty_launches["gd_iteration_slab"] == 4 * (16 - j - 1)
+    assert loop.calls == (1 if groups == 1 else 16 * groups)
+    assert kernels.launch_counts["gd_iteration_slab"] == groups * (j + 1)
+    assert kernels.empty_launches["gd_iteration_slab"] == groups * (16 - j - 1)
 
 
 @pytest.mark.cuda
@@ -856,16 +867,19 @@ def _same(a, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("per_card", [1, 2])
 @pytest.mark.parametrize("warp_window", [2, None])
-def test_sharded_solve_on_distinct_cards_equals_one_card(cards, warp_window):
-    """make_sharded_estimate_psi with each z-slab on its own card (the halo
-    rows, the stop test's norm words and the energies copied between cards)
-    equals the same mesh laid on one card bit for bit: windowed (fused,
-    momentum, warm inverse, a stall stop) and exact (gathered volumes)."""
+def test_sharded_solve_on_distinct_cards_equals_one_card(cards, warp_window, per_card):
+    """make_sharded_estimate_psi with per_card consecutive z-slabs on each
+    card (one card group a card: the halo rows, the stop test's norm words
+    and the energies copied between cards) equals the same mesh laid on one
+    card (one group) bit for bit: windowed (fused, momentum, warm inverse, a
+    stall stop) and exact (gathered volumes)."""
     from sobfu_tpu_torch.parallel import make_mesh, make_sharded_estimate_psi
     from sobfu_tpu_torch.tsdf import init_sphere
 
-    n = len(cards)
+    devs = [c for c in cards for _ in range(per_card)]
+    n = len(devs)
     dims, vs = (16 * n, 32, 32), 0.125 / 32
     c = (0.0625, 0.0625, 0.0625 * n)
     tg, wg = init_sphere(dims, (vs,) * 3, c, 0.02, 10 * vs, 2 * vs)
@@ -879,8 +893,8 @@ def test_sharded_solve_on_distinct_cards_equals_one_card(cards, warp_window):
                     momentum=0.9, warm_inverse=True, stall_window=8, stall_rel=0.2)
         extra = (psi + 0.1,)
     outs = []
-    for devs in (cards, [cards[0]] * n):
-        mesh = make_mesh(n_z=n, devices=devs)
+    for layout in (devs, [cards[0]] * n):
+        mesh = make_mesh(n_z=n, devices=layout)
         fn = make_sharded_estimate_psi(mesh, **opts)
         outs.append((fn(psi, tg, wg, tn, wn, taps, 0.1, 0.4, 40, -1.0, *extra), mesh.gathers))
     (got, g_gathers), (want, w_gathers) = outs

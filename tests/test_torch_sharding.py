@@ -358,17 +358,27 @@ def test_sharded_pyramid_seam_cost_within_jax_bounds():
     assert e_shd <= e_ref * 1.05 + 1e-6, (e_shd, e_ref)
 
 
-def test_windowed_solve_gathers_no_volume():
+def test_windowed_solve_gathers_no_volume(monkeypatch):
     """The windowed solve gathers no whole volume (per slab memory stays at
     slab + halo); the exact mode gathers five (live, psi, tg, wg, wn), the
     all-gathers of JAX's compiled exact solve. The halo bytes are counted
-    and the loop's exchanges (psi and tnp, 4 rows each way) are those of the
-    iterations enqueued."""
-    _, mesh = _port_solve("windowed")
+    and the loop's exchanges (psi and tnp, 4 rows each way over each seam
+    between card groups) are those of the iterations enqueued: none on one
+    device (one group), one seam with the slabs forced into two groups of 2
+    (kernels.card_groups patched), whose solve equals the one group's bit
+    for bit."""
+    one, mesh = _port_solve("windowed")
     assert mesh.gathers == 0 and mesh.halo_bytes > 0
-    per_it = 3 * 2 * (3 + 1) * H * DIM * DIM * 4  # 3 seams both ways, psi and tnp
+    seams = len(kernels.card_groups([torch.device("cpu")] * 4)) - 1
+    per_it = seams * 2 * (3 + 1) * H * DIM * DIM * 4  # each seam both ways, psi and tnp
     assert mesh.loop_halo_bytes == per_it * mesh.loop_iterations
     assert mesh.loop_iterations >= 24
+    monkeypatch.setattr(kernels, "card_groups", lambda devices: [(0, 2), (2, 4)])
+    two, mesh = _port_solve("windowed")
+    per_it = 1 * 2 * (3 + 1) * H * DIM * DIM * 4
+    assert mesh.loop_halo_bytes == per_it * mesh.loop_iterations > 0
+    assert all(np.array_equal(a, b) for a, b in zip(one, two))
+    monkeypatch.undo()
     _, mesh = _port_solve("exact")
     assert mesh.gathers == 5
 

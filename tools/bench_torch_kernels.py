@@ -1,7 +1,8 @@
-"""Kernels B, A, E and C of the PyTorch port timed on one CUDA card, for
-comparing two trees inside one call.
+"""Kernels B, A (and its slab form), E and C of the PyTorch port timed on
+one CUDA card, for comparing two trees inside one call.
 
     python tools/bench_torch_kernels.py [--root DIR] [--label NAME] [--out FILE]
+                                        [--only B,A,slab,E,C] [--slab-cards N]
 
 imports ``sobfu_tpu_torch`` from DIR (default: this checkout), builds its
 kernels and times, at the main path's shapes and with chip_smoke.py's two
@@ -17,6 +18,14 @@ yardsticks (``cuda_ms``: one event pair around a run of 20 calls, median of
       at 64^3, K=1, momentum 0.95; over S = 4 scenes of 128^3, K=2,
       momentum 0.95; and, where the tree has kernels.GdLoop, the same through
       chunks of 16 iterations per call (per iteration)
+  A's slab form  where the tree has kernels.GdSlabLoop, an iteration of it
+      at 128^3 in 4 slabs of the card, K=2, momentum 0.95, through chunks
+      of 16 (the loop's own layout: one launch a slab and iteration in the
+      first form, one card group in the redesign); with --slab-cards N the
+      4 slabs lie on cards 0..N-1, 4/N consecutive slabs each (N = 4: one
+      slab a card, make_mesh's default layout), and the case adds
+      ``wall_ms``, host milliseconds an iteration over 20 calls, median of
+      7 (its device_ms then sums the cards')
   E   one launch of 16 iterations at 64^3, K=1, 7 taps, momentum 0.95 (the
       pyramid's coarse level); where the tree has kernels.GdMultiLoop, the
       same through the loop (8 launches per call, per launch) and one
@@ -32,8 +41,9 @@ script measures a tree from before a kernel's redesign and one after it:
     for r in _checkout/parent . . _checkout/parent; do
         python tools/bench_torch_kernels.py --root $r --label $r; done
 
-Prints one JSON object per run (the card's name and power limit in it);
---out appends it to FILE. Needs a CUDA card; fails without one.
+--only times only the named parts (default: all). Prints one JSON object
+per run (the card's name and power limit in it); --out appends it to FILE.
+Needs a CUDA card (N of them with --slab-cards N); fails without one.
 """
 
 import argparse
@@ -41,6 +51,7 @@ import importlib.util
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -52,12 +63,18 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=HERE, help="the tree whose sobfu_tpu_torch is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None, help="append the JSON line to this file")
+    ap.add_argument("--only", default="B,A,slab,E,C", help="the parts to time")
+    ap.add_argument("--slab-cards", type=int, default=1, choices=(1, 2, 4),
+                    help="the cards the slab loop's 4 slabs lie on")
     args = ap.parse_args(argv)
     import torch
 
-    if not torch.cuda.is_available():
-        print("bench_torch_kernels: needs a CUDA card", file=sys.stderr)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < args.slab_cards:
+        print(f"bench_torch_kernels: needs {args.slab_cards} CUDA card(s)", file=sys.stderr)
         return 2
+    parts = set(args.only.split(","))
+    if parts - {"B", "A", "slab", "E", "C"}:
+        ap.error(f"--only: unknown parts {sorted(parts - {'B', 'A', 'slab', 'E', 'C'})}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -100,7 +117,7 @@ def main(argv=None) -> int:
     out = {"label": args.label or root, "card": smoke.nvidia_smi(),
            "torch": torch.__version__}
 
-    for name, psi in (("psi_x", psi_x), ("psi_w", psi_w)):
+    for name, psi in (("psi_x", psi_x), ("psi_w", psi_w)) if "B" in parts else ():
         lib, err = smoke.library_warp(torch, tg, psi, kernels.warp(vol1, psi, None, (False,))[0])
         if err > 1e-4:
             raise RuntimeError(f"grid_sample differs from B at {name}: {err}")
@@ -111,34 +128,36 @@ def main(argv=None) -> int:
         turns = [both(b_call), both(lib), both(lib), both(b_call)]
         out[f"warp_exact_{name}"] = [turns[0], turns[3]]
         out[f"grid_sample_{name}"] = [turns[1], turns[2]]
-    out["warp_K2_psi_w"] = both(lambda: kernels.warp(vol1, psi_w, 2, (False,)))
-    out["warp_mixed_K2_psi_w"] = both(lambda: kernels.warp(vol2, psi_w, 2, (False, True)))
-    out["warp_field3_K2_psi_w"] = both(lambda: kernels.warp_field3(field, psi_w, 2))
+    if "B" in parts:
+        out["warp_K2_psi_w"] = both(lambda: kernels.warp(vol1, psi_w, 2, (False,)))
+        out["warp_mixed_K2_psi_w"] = both(lambda: kernels.warp(vol2, psi_w, 2, (False, True)))
+        out["warp_field3_K2_psi_w"] = both(lambda: kernels.warp_field3(field, psi_w, 2))
 
-    for mu in (None, 0.95):
+    for mu in (None, 0.95) if "A" in parts else ():
         a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, mu, 2)
         out[f"gd_iteration_128_K2_momentum_{mu}"] = both(lambda a=a: kernels.gd_iteration(*a))
-    a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 2)
-    out["gd_iteration_128_K2_momentum_0.95_energy"] = both(
-        lambda: kernels.gd_iteration(*a, with_energy=True))
-
     S = 4
-    b = (torch.stack([psi_w] * S), torch.stack([tnp] * S), torch.stack([vel] * S),
-         torch.stack([tg] * S), torch.stack([live] * S))
-    on = torch.ones(S, dtype=torch.bool, device=dev)
-    out["gd_iteration_scenes_4x128_K2_momentum_0.95"] = both(
-        lambda: kernels.gd_iteration_scenes(*b, taps, 0.05, 0.2, 0.95, 2, on))
-    del b
+    if "A" in parts:
+        a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 2)
+        out["gd_iteration_128_K2_momentum_0.95_energy"] = both(
+            lambda: kernels.gd_iteration(*a, with_energy=True))
+        b = (torch.stack([psi_w] * S), torch.stack([tnp] * S), torch.stack([vel] * S),
+             torch.stack([tg] * S), torch.stack([live] * S))
+        on = torch.ones(S, dtype=torch.bool, device=dev)
+        out["gd_iteration_scenes_4x128_K2_momentum_0.95"] = both(
+            lambda: kernels.gd_iteration_scenes(*b, taps, 0.05, 0.2, 0.95, 2, on))
+        del b
 
     tnp128, tg128, live128 = tnp, tg, live
     dims, tg, live, ident = scene(64)
     psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
     tnp = live + t(rng.normal(0.0, 0.05, dims))
     vel = t(rng.normal(0.0, 0.1, (3,) + dims))
-    out["gd_iteration_64_K1_momentum_0.95"] = both(
-        lambda: kernels.gd_iteration(psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1))
+    if "A" in parts:
+        out["gd_iteration_64_K1_momentum_0.95"] = both(
+            lambda: kernels.gd_iteration(psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1))
 
-    if hasattr(kernels, "GdLoop"):  # a tree with the chunked loop: A as the solves run it
+    if "A" in parts and hasattr(kernels, "GdLoop"):  # a tree with the chunked loop: A as the solves run it
         b = (torch.stack([psi_w] * S), torch.stack([tnp128] * S), torch.stack([tg128] * S),
              torch.stack([live128] * S))
         out["gd_loop_128_K2_momentum_None"] = smoke.timed_chunks(
@@ -151,12 +170,35 @@ def main(argv=None) -> int:
         out["gd_loop_64_K1_momentum_0.95"] = smoke.timed_chunks(
             kernels, "gd_iteration", psi[None], tnp[None], tg[None], live[None], taps, 0.05, 0.2,
             0.95, 1)
+    if "slab" in parts and hasattr(kernels, "GdSlabLoop"):  # as the z-sharded solve runs it
+        from sobfu_tpu_torch.parallel import zshard
+
+        N = args.slab_cards
+        devs = [torch.device("cuda", j * N // 4) for j in range(4)] if N > 1 else [dev] * 4
+        state = [zshard._split(x[None], devs) for x in (psi_w, tnp128)]
+        pad = [zshard._halo_exchange_z(zshard._split(x[None], devs), zshard.H)
+               for x in (tg128, live128)]
+        loop = kernels.GdSlabLoop(*state, *pad, taps, 0.05, 0.2, 0.95, 2, -1.0, 128)
+        n, on = kernels.GD_CHUNK, np.ones(1, bool)
+        key = "gd_slab_loop_128_4slabs" + (f"_{N}cards" if N > 1 else "") + "_K2_momentum_0.95"
+        out[key] = {"ms": smoke.cuda_ms(lambda: loop.run(n, on), reps=4) / n,
+                    "device_ms": smoke.device_ms(lambda: loop.run(n, on), reps=4) / n}
+        if N > 1:  # the device time above sums the cards'
+            walls = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    loop.run(n, on)
+                walls.append((time.perf_counter() - t0) * 1e3 / (20 * n))
+            out[key]["wall_ms"] = float(np.median(walls))
+        del loop, state, pad
 
     # E at the coarse level's shapes (chip_smoke.py check_gd_multi's case)
     psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
     e_args = (psi, tnp, vel, tg, live, taps, 0.05, 0.2, 0.95, 1, 16)
-    out["gd_multi_64_K1_momentum_0.95"] = both(lambda: kernels.gd_multi(*e_args))
-    if hasattr(kernels, "GdMultiLoop"):
+    if "E" in parts:
+        out["gd_multi_64_K1_momentum_0.95"] = both(lambda: kernels.gd_multi(*e_args))
+    if "E" in parts and hasattr(kernels, "GdMultiLoop"):
         loop = kernels.GdMultiLoop(psi, tnp, tg, live, taps, 0.05, 0.2, 0.95, 1, -1.0, 1 << 30,
                                    16)
         m = kernels.GD_MULTI_LAUNCHES
@@ -173,13 +215,14 @@ def main(argv=None) -> int:
         kernels.GD_MULTI_MIN_LZ = default
 
     # C: the slice's warm window inverse, the multigrid coarse one, the shipped exact one
-    warm = kernels.inverse_fixed_point_plain(psi, 2, 1)
-    out["inverse_64_K1_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 1, warm))
-    dims, tg, live, ident = scene(128)
-    psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
-    warm = kernels.inverse_fixed_point_plain(psi, 2, 2)
-    out["inverse_128_K2_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 2, warm))
-    out["inverse_128_exact_48"] = both(lambda: kernels.inverse_fixed_point(psi, 48, None))
+    if "C" in parts:
+        warm = kernels.inverse_fixed_point_plain(psi, 2, 1)
+        out["inverse_64_K1_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 1, warm))
+        dims, tg, live, ident = scene(128)
+        psi = ident + t(rng.uniform(-0.9, 0.9, (3,) + dims))
+        warm = kernels.inverse_fixed_point_plain(psi, 2, 2)
+        out["inverse_128_K2_3_warm"] = both(lambda: kernels.inverse_fixed_point(psi, 3, 2, warm))
+        out["inverse_128_exact_48"] = both(lambda: kernels.inverse_fixed_point(psi, 48, None))
 
     line = json.dumps(out)
     print(line, flush=True)
