@@ -155,6 +155,28 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 make_mesh(n_z=8), MAX_ITER 32 a level: its seconds, 0
                 whole-volume gathers, peak memory. Only A's slab form may
                 launch on these paths
+ 14. kinfu      models.KinFu at KinFuParams.default_params() (640x480,
+                512^3), frame-to-frame and frame-to-model (run_kinfu_phase)
+ 15. fidelity   tools/fidelity_torch.py in this process on the card, in six
+                lanes (FIDELITY_LANES): the JAX package's three CI lanes
+                with their flags, the tool's defaults at 64^3, --production
+                at 64^3, and --production --fused at 128^3 (E on the 64^3
+                coarse level, the multigrid inverse); each lane's JSON
+                report, seconds and launches beside the nvidia-smi line.
+                Every lane must pass tools/fidelity.py's budgets and launch
+                A, B and C; D where the accumulation scene runs, E in the
+                fused lane. Then each kernel at each signature the lane ran
+                (grid, window, channels, steps) against its plain version
+                on the card: B, warp_field3 and C on the lane's own operands
+                (atol 1e-5), D bit for bit, A and E on its volumes and taps
+                at a psi drawn around the identity. The two 32^3 lanes (and
+                under --fidelity the 64^3 lane's four solver scenes) run
+                again on the CPU: equal iterations, the report's figures
+                within 1e-4
+ 16. logged     the compositive loop with the inverse warps on at 32^3, 4
+                frames, on the card and on the CPU: the incremental inverse
+                and the exact tails; psi and psi_inv within 8 ulps of the
+                largest coordinate, the tails against B's plain version
 The launch counts of each path are zeroed just before it and read just
 after; kernel A's count is the iterations that ran on the card (the
 device's counter), its launches after a stop are printed apart. The last
@@ -162,8 +184,9 @@ three lines are the kernel report (JSON; launches summed over the paths
 above that run each kernel; each kernel's ms and device_ms, its plain
 version's time, the bound of its work at the shapes timed — the bytes it
 must move at 3.35 TB/s or its float operations at 67 TFLOP/s, whichever is
-larger — and, for B's exact warp, torch.nn.functional.grid_sample's time;
-B's row carries its K=2 and mixed C=2 variants under "also"), the
+larger — and, for B's exact warp and warp_field3's exact form,
+torch.nn.functional.grid_sample's time; B's row carries its K=2 and mixed
+C=2 variants under "also", warp_field3's its K=2 form), the
 nvidia-smi line and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --kernels
@@ -172,7 +195,8 @@ stops after phase 4 (the build, the kernel checks, the goldens).
 
     python3 chip_smoke.py --sharded
 
-runs the build and phase 13 alone.
+runs the build and phase 13 alone; --kinfu phase 14, --fidelity phases 15
+and 16 (phase 15's CPU half at 64^3 too).
 
     python3 chip_smoke.py --probe DIR
 
@@ -442,7 +466,7 @@ def check_kernels(torch, kernels, fields, solver):
     # the report's row: the exact warp, the function one library call computes;
     # B and the library call in turns (B, library, library, B) at psi_x and psi_w
     for label, psi in (("psi_w (+-1.8 voxels)", psi_w), ("psi_x (+-3.5 voxels)", psi_x)):
-        lib, lib_err = library_warp(torch, tg, psi, kernels.warp(vol1, psi, None, (False,))[0])
+        lib, lib_err = library_warp(torch, vol1, psi, kernels.warp(vol1, psi, None, (False,)))
         check(lib_err <= 1e-4, "grid_sample does not compute B's exact warp")
 
         def b_call(psi=psi):
@@ -516,25 +540,46 @@ def check_kernels(torch, kernels, fields, solver):
         max(errs), times, plain, nbytes(psi0, g1, wnc, psi0, wnc),
         n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + FLOOR_OPS))
 
-    # B on three channels: warp_field3 at K=2 inside and beyond the window
+    # B on three channels: warp_field3 at K=2 inside and beyond the window,
+    # and exact
     errs = []
     field = ident + t(rng.uniform(-2.0, 2.0, (3,) + dims))
-    for psi in (psi_w, psi_x):
-        got = kernels.warp_field3(field, psi, 2)
-        e = max_abs(got, kernels.warp_field3_plain(field, psi, 2))
-        log("kernels", f"warp_field3 K=2 at {'psi_w' if psi is psi_w else 'psi_x'}: "
+    for K, psi in ((2, psi_w), (2, psi_x), (None, psi_x)):
+        got = kernels.warp_field3(field, psi, K)
+        e = max_abs(got, kernels.warp_field3_plain(field, psi, K))
+        log("kernels", f"warp_field3 K={K} at {'psi_w' if psi is psi_w else 'psi_x'}: "
             f"max|d|={e:.3e}")
         check(e <= 1e-5, "warp_field3 disagrees with its plain version")
         errs.append(e)
-    times = timed(lambda: kernels.warp_field3(field, psi_w, 2))
-    plain = plain_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2))
-    results["warp_field3"] = row(max(errs), times, plain, nbytes(field, psi_w, field),
-                                 n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS))
+    also = {"K=2": row(max(errs), timed(lambda: kernels.warp_field3(field, psi_w, 2)),
+                       plain_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2)),
+                       nbytes(field, psi_w, field),
+                       n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS))}
+    # the report's row: the exact form (K None), the function grid_sample
+    # computes on three channels; in turns with it (B, library, library, B)
+    lib, lib_err = library_warp(torch, field, psi_x, kernels.warp_field3(field, psi_x, None))
+    check(lib_err <= 1e-4, "grid_sample does not compute warp_field3's exact form")
+    turns = [timed(f) for f in (lambda: kernels.warp_field3(field, psi_x, None), lib, lib,
+                                lambda: kernels.warp_field3(field, psi_x, None))]
+    log("kernels", "warp_field3 exact at psi_x (+-3.5 voxels), in turns B / grid_sample / "
+        "grid_sample / B: ms " + " / ".join(f"{t['ms']:.4f}" for t in turns) + "; device ms "
+        + " / ".join(f"{t['device_ms']:.4f}" for t in turns)
+        + f" (max|d| from B {lib_err:.3e}); K=2 at psi_w: {also['K=2']['ms']:.4f} ms, "
+        f"{also['K=2']['device_ms']:.4f} ms device")
+    results["warp_field3"] = row(
+        max(errs), {k: min(turns[0][k], turns[3][k]) for k in ("ms", "device_ms")},
+        plain_ms(lambda: kernels.warp_field3_plain(field, psi_x, None)),
+        nbytes(field, psi_x, field), n * (TAPS_OPS["exact"] + 3 * TRILINEAR_OPS),
+        min(turns[1]["ms"], turns[2]["ms"]))
+    results["warp_field3"]["library_device_ms"] = min(turns[1]["device_ms"],
+                                                      turns[2]["device_ms"])
+    results["warp_field3"]["also"] = also
 
     results["gd_iteration_scenes"] = check_gd_iteration_scenes(torch, kernels, fields, solver)
 
     where = {"gd_multi": "64^3, K=1, momentum 0.95, 16 iterations",
              "compose_weight": "128^3, Kf=1, Kw=2", "warp": "128^3, exact, one channel",
+             "warp_field3": "128^3, exact, three channels",
              "gd_iteration_scenes": "4 scenes of 128^3, K=2, momentum 0.95"}
     for name, r in results.items():
         log("kernels", f"{name}: {r['ms']:.4f} ms kernel (a run of 20 calls between one event "
@@ -728,24 +773,25 @@ def check_gd_chunks(torch, kernels, fields, solver, dims=(64, 64, 64)):
 
 
 def library_warp(torch, vol, psi, want):
-    """B's exact warp of one volume as one library call, timed beside B as
-    library_ms and called nowhere in the port: torch.nn.functional.
-    grid_sample on a 5-D input, trilinear ("bilinear" on 5-D), "border"
-    padding (the clamp to [0, n - 1]), align_corners (voxel 0 at -1 and
-    voxel n - 1 at 1); the grid is built from psi outside the timed call.
-    Returns (the call, its max |difference| from B's output)."""
+    """B's exact warp of the C channels of vol f32[C,Z,Y,X] as one library
+    call, timed beside B as library_ms and called nowhere in the port:
+    torch.nn.functional.grid_sample on a 5-D input of C channels, trilinear
+    ("bilinear" on 5-D), "border" padding (the clamp to [0, n - 1]),
+    align_corners (voxel 0 at -1 and voxel n - 1 at 1); the grid is built
+    from psi outside the timed call. Returns (the call, its max |difference|
+    from B's output ``want``)."""
     import torch.nn.functional as F
 
-    Z, Y, X = vol.shape
+    _, Z, Y, X = vol.shape
     ext = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32, device=vol.device)
     grid = (psi.permute(1, 2, 3, 0) / ext * 2.0 - 1.0)[None].contiguous()
-    inp = vol[None, None].contiguous()
+    inp = vol[None].contiguous()
 
     def call():
         return F.grid_sample(inp, grid, mode="bilinear", padding_mode="border",
                              align_corners=True)
 
-    return call, max_abs(call()[0, 0], want)
+    return call, max_abs(call()[0], want)
 
 
 def check_gd_iteration_scenes(torch, kernels, fields, solver):
@@ -2560,6 +2606,272 @@ def run_kinfu_phase(torch, kernels):
             run_kinfu(torch, kernels, frames, poses, True, "kinfu f2m")]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the analytic quality gates (tools/fidelity_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+# (the tool's flags, the kernels that must launch, the scenes run again on
+# the CPU): the JAX package's three CI lanes (.github/workflows/ci.yml) with
+# their flags, then the full width: the tool's defaults, its production
+# configuration at 64^3, and at 128^3 the fused dispatch, whose 64^3 coarse
+# level runs E and whose inverse is the multigrid one
+FIDELITY_ABC = ("gd_iteration", "warp", "inverse_fixed_point")
+FIDELITY_SOLVES = "translation,expansion,rotation,bending"
+FIDELITY_LANES = (
+    ("--dim 32 --iters 384 --warp-window 4", FIDELITY_ABC + ("warp_fuse",), "all"),
+    ("--dim 32 --iters 256 --warp-window 2 --production", FIDELITY_ABC + ("warp_fuse",), "all"),
+    ("--dim 128 --iters 256 --warp-window 4 --scenarios translation,bending", FIDELITY_ABC,
+     None),
+    ("--dim 64", FIDELITY_ABC + ("warp_fuse",), FIDELITY_SOLVES),
+    ("--dim 64 --production", FIDELITY_ABC + ("warp_fuse",), None),
+    ("--dim 128 --iters 256 --warp-window 2 --production --fused "
+     "--scenarios translation,bending", FIDELITY_ABC + ("gd_multi",), None),
+)
+# the report's keys held to the CPU's run of the same scenes, absolute
+FIDELITY_KEYS = ("energy_ratio", "mesh_rmse_voxels", "inverse_consistency_max_vox",
+                 "tracked_mean_dx_vox", "tracking_fraction")
+FIDELITY_ATOL = 1e-4
+
+
+@contextlib.contextmanager
+def recording(torch, kernels, seen):
+    """The with-block of a fidelity lane: the wrappers of B, warp_field3, C
+    and D keep, cloned, the operands of their first call at each signature
+    (the shapes, the window, the channels' rules, the steps, a start or the
+    identity); each loop of A and E keeps its grid, taps, weights, momentum
+    and window (and E's chunk) with its scene's tnp, canonical and live
+    volumes. seen maps each signature to those operands. The calls go on to
+    the kernels and are counted as before."""
+    import inspect
+
+    def keep(key, args):
+        if key not in seen:
+            seen[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    def wrapped(name):
+        fn = getattr(kernels, name)
+        sig = inspect.signature(fn)
+
+        def call(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            a = tuple(bound.arguments.values())
+            keep((name,) + tuple(tuple(v.shape) if torch.is_tensor(v)
+                                 else tuple(v) if isinstance(v, list) else v for v in a), a)
+            return fn(*args, **kw)
+
+        return kernels, name, call
+
+    class GdLoop(kernels.GdLoop):
+        def __init__(self, kernel, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K,
+                     *rest, **kw):
+            keep(("gd_iteration", tuple(psi.shape[-3:]), taps.shape[0], K, momentum),
+                 (tnp[0], tg[0], live[0], taps, alpha, w_reg, momentum, K))
+            super().__init__(kernel, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K,
+                             *rest, **kw)
+
+    class GdMultiLoop(kernels.GdMultiLoop):
+        def __init__(self, psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, thresh,
+                     max_iter, n_inner, *rest, **kw):
+            keep(("gd_multi", tuple(psi.shape[1:]), taps.shape[0], K, momentum, n_inner),
+                 (tnp, tg, live, taps, alpha, w_reg, momentum, K, n_inner))
+            super().__init__(psi, tnp, tg, live, taps, alpha, w_reg, momentum, K, thresh,
+                             max_iter, n_inner, *rest, **kw)
+
+    with patched(*(wrapped(n) for n in ("warp", "warp_field3", "inverse_fixed_point",
+                                         "warp_fuse")),
+                 (kernels, "GdLoop", GdLoop), (kernels, "GdMultiLoop", GdMultiLoop)):
+        yield
+
+
+def replay(torch, kernels, fields, seen, lane):
+    """Each signature a fidelity lane ran (:func:`recording`), its kernel
+    against its plain version on the card. B, warp_field3 and C on the
+    lane's own operands within 1e-5 (B's floor channels bit for bit), D bit
+    for bit. A (with its energy) and E on the lane's tnp, canonical and live
+    volumes, taps and weights, at a psi drawn around the identity (A: within
+    K + 0.5 voxels, past the window; E: within 0.9 K; exact: 2.5) with a
+    velocity of 0.1 where there is momentum: atol 1e-5 on the state, rtol
+    1e-5 on the rows, as phase 3 holds them. Returns the largest
+    difference."""
+    rng = np.random.default_rng(7)
+    worst = 0.0
+    for key, a in seen.items():
+        name = key[0]
+        if name in ("gd_iteration", "gd_multi"):
+            tnp, tg, live, taps, alpha, w_reg, mu, K = a[:8]
+            dims = tuple(tg.shape)
+            amp = 2.5 if K is None else K + 0.5 if name == "gd_iteration" else 0.9 * K
+            psi = fields.identity_field(dims, device=tg.device) + torch.as_tensor(
+                rng.uniform(-amp, amp, (3,) + dims).astype(np.float32), device=tg.device)
+            vel = None if mu is None else torch.as_tensor(
+                rng.normal(0.0, 0.1, (3,) + dims).astype(np.float32), device=tg.device)
+            ops = (psi, tnp, vel, tg, live, taps, alpha, w_reg, mu, K) + tuple(a[8:])
+            got = getattr(kernels, name)(*ops, with_energy=True)
+            ref = getattr(kernels, name + "_plain")(*ops, with_energy=True)
+            e = max(max_abs(g, r) for g, r in zip(got[:3], ref[:3]))
+            rel = max(float(torch.max(torch.abs(g - r) / torch.abs(r).clamp_min(1e-30)))
+                      for g, r in zip(got[3:], ref[3:]) if r is not None)
+            ok, what = e <= 1e-5 and rel <= 1e-5, f"max|d| {e:.3e}, rel d rows {rel:.3e}"
+        else:
+            got = getattr(kernels, name)(*a)
+            ref = getattr(kernels, name + "_plain")(*a)
+            got, ref = (tuple(got), tuple(ref)) if name == "warp_fuse" else ((got,), (ref,))
+            e = max(max_abs(g, r) for g, r in zip(got, ref))
+            if name == "warp_fuse":
+                ok = all(bitwise(g, r) for g, r in zip(got, ref))
+            elif name == "warp":
+                ok = e <= 1e-5 and all(bitwise(got[0][c], ref[0][c])
+                                       for c, floor in enumerate(a[3]) if floor)
+            else:
+                ok = e <= 1e-5
+            what = f"max|d| {e:.3e}"
+        log("fidelity", f"{lane}: {name} {key[1:]} against its plain version: {what}")
+        check(ok, f"fidelity: {lane}: {name} {key[1:]} disagrees with its plain version")
+        worst = max(worst, e)
+    return worst
+
+
+def same_reports(card, cpu, lane):
+    """The card's report against the CPU's run of the same scenes: equal
+    iterations, FIDELITY_KEYS within FIDELITY_ATOL. Returns the largest
+    difference."""
+    mine = {r["scenario"]: r for r in card["results"]}
+    worst = 0.0
+    for want in cpu["results"]:
+        got = mine[want["scenario"]]
+        check(got.get("iters_run") == want.get("iters_run"),
+              f"fidelity: {lane}: {want['scenario']} ran {got.get('iters_run')} iterations on "
+              f"the card and {want.get('iters_run')} on the CPU")
+        for k in FIDELITY_KEYS:
+            if k in want:
+                d = abs(got[k] - want[k])
+                worst = max(worst, d)
+                check(d <= FIDELITY_ATOL, f"fidelity: {lane}: {want['scenario']} {k} "
+                      f"{got[k]!r} on the card, {want[k]!r} on the CPU")
+    return worst
+
+
+def run_fidelity_phase(torch, kernels, fields, cpu_dims=(32,)):
+    """Phase 15: tools/fidelity_torch.py in this process on the card, lane by
+    lane: its report, its seconds and each kernel's launches, beside the
+    card's name and power limit. Every lane must pass the JAX package's
+    budgets and launch the kernels named in FIDELITY_LANES. Then every
+    kernel at every signature the lane ran is held to its plain version
+    (:func:`replay`), and in the lanes of a grid in cpu_dims the scenes
+    named in FIDELITY_LANES run again on the CPU (the plain torch path)
+    and are held to the card's (:func:`same_reports`). The full script
+    runs the CPU's half at 32^3 (about 80 s on an 8-core host), --fidelity
+    at 64^3 too (about 140 s more). Returns the launch counts of each
+    lane."""
+    fid = tool("fidelity_torch")
+    smi = nvidia_smi()
+    runs = []
+    for flags, expect, on_cpu in FIDELITY_LANES:
+        args = fid.parse_args(flags.split() + ["--device", DEVICE])
+        seen = {}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recording(torch, kernels, seen):
+            report = fid.run(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+        log("fidelity", f"{flags}: report {json.dumps(report)}")
+        log("fidelity", f"{flags}: {secs:.4f} s, pass {report['pass']}, launches {counts} | {smi}")
+        check(report["pass"], f"fidelity: {flags} missed a budget of tools/fidelity.py")
+        for name in expect:
+            check(counts[name] > 0, f"fidelity: {flags}: kernel {name} was never launched")
+        runs.append(counts)
+        e = replay(torch, kernels, fields, seen, flags)
+        log("fidelity", f"{flags}: {len(seen)} kernel signatures held to their plain "
+            f"versions, largest max|d| {e:.3e}")
+        if on_cpu and args.dim in cpu_dims:
+            cpu_flags = flags.split() + ["--device", "cpu", "--scenarios", on_cpu]
+            t0 = time.perf_counter()
+            ref = fid.run(fid.parse_args(cpu_flags))
+            d = same_reports(report, ref, flags)
+            log("fidelity", f"{flags}: the CPU's run of {on_cpu} ({time.perf_counter() - t0:.4f} "
+                f"s): equal iterations, max|d| of {'/'.join(FIDELITY_KEYS)} {d:.3e} "
+                f"(atol {FIDELITY_ATOL})")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the logged compositive loop, the card against the CPU
+# ---------------------------------------------------------------------------
+
+LOGGED_DIM, LOGGED_FRAMES, LOGGED_STEP, LOGGED_RADIUS = 32, 4, 0.03, 0.2
+
+
+def run_logged_phase(torch, kernels, ini):
+    """Phase 16: the compositive frame loop with the inverse warps on (the
+    logged loop, need_inv_warps), which runs two paths nothing else runs on
+    the card: the incremental inverse (INCREMENTAL_INV=1: C on the increment
+    in the window, its displacement sampled exactly at psi_inv0, exact
+    anchoring steps) and the exact compositive tails (phi_global o psi_inv,
+    B without a window). compositive_params at 32^3 (1 voxel of 31 mm, so
+    no fused dispatch: the exact composition), LOGGED_FRAMES frames of a 0.2
+    m sphere moving 30 mm a frame, on the card and on the CPU from the same
+    depth. psi and psi_inv within 8 ulps of the largest coordinate; the
+    card's tails against B's plain version at the card's psi_inv (atol 1e-5,
+    the floor-warped weight bit for bit). Returns the card's launch counts."""
+    from sobfu_tpu_torch.pipeline import SobFusion
+
+    params = compositive_params(ini)
+    params.volume_dims = (LOGGED_DIM,) * 3
+    params.incremental_inverse = True
+    frames = render_frames(params, LOGGED_FRAMES, LOGGED_STEP, LOGGED_RADIUS)
+    state = {}
+    counts = None
+    for dev in (DEVICE, "cpu"):
+        fusion = SobFusion(params, device=dev)
+        check(fusion.need_inv_warps, "logged: the inverse warps are off")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, depth in enumerate(frames):
+            if i == len(frames) - 1:  # the last solve's tails warp these
+                tg, wg = fusion.phi_global.tsdf.clone(), fusion.phi_global.weight.clone()
+            fusion(depth)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        s = fusion.solver
+        if counts is None:
+            counts = dict(kernels.launch_counts)
+            check(s.mode == "compositive" and s.takes_psi_inv0 and not s.fused,
+                  "logged: not the exact compositive loop with the incremental inverse")
+        log("logged", f"{dev}: {LOGGED_FRAMES} frames in {secs:.4f} s, last solve "
+            f"{fusion.last_solve.iters} iterations; launches {dict(kernels.launch_counts)}")
+        state[dev] = {
+            "psi": fusion.psi.data, "psi_inv": fusion.psi_inv.data,
+            "tails_tsdf": fusion.phi_global_psi_inv.tsdf,
+            "tails_weight": fusion.phi_global_psi_inv.weight,
+            "tg": tg, "wg": wg,
+        }
+    card, cpu = state[DEVICE], {k: v.to(DEVICE) for k, v in state["cpu"].items()}
+    ulps = 8 * float(np.spacing(np.float32(LOGGED_DIM - 1)))
+    for key in ("psi", "psi_inv"):
+        e = max_abs(card[key], cpu[key])
+        log("logged", f"{key}: card against CPU max|d| = {e:.3e} (8 ulps: {ulps:.3e})")
+        check(e <= ulps, f"logged: {key} on the card disagrees with the CPU")
+    # the last solve's tails: canonical tsdf and weight before its fuse,
+    # warped exactly at its psi_inv; B's plain version on the card's inputs
+    want = kernels.warp_plain(torch.stack([card["tg"], card["wg"]]), card["psi_inv"], None,
+                              (False, True))
+    e_t = max_abs(card["tails_tsdf"], want[0])
+    same_w = bitwise(card["tails_weight"], want[1])
+    log("logged", f"tails against B's plain version: tsdf max|d| = {e_t:.3e}, weight bit for "
+        f"bit {same_w}; card against CPU: tsdf max|d| = "
+        f"{max_abs(card['tails_tsdf'], cpu['tails_tsdf']):.3e}, weight differs at "
+        f"{int((card['tails_weight'] != cpu['tails_weight']).sum())} voxels")
+    check(e_t <= 1e-5 and same_w, "logged: the exact tails disagree with B's plain version")
+    for name in ("inverse_fixed_point", "warp_field3", "warp", "gd_iteration"):
+        check(counts[name] > 0, f"logged: kernel {name} was never launched")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2574,6 +2886,8 @@ def main(argv=None) -> int:
                     help="run the build and phase 13 (sharded) alone")
     ap.add_argument("--kinfu", action="store_true",
                     help="run the build and phase 14 (kinfu) alone")
+    ap.add_argument("--fidelity", action="store_true",
+                    help="run the build and phases 15 (fidelity) and 16 (logged) alone")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2607,6 +2921,10 @@ def main(argv=None) -> int:
     if args.kinfu:
         run_kinfu_phase(torch, kernels)
         return 0
+    if args.fidelity:
+        run_fidelity_phase(torch, kernels, fields, cpu_dims=(32, 64))
+        run_logged_phase(torch, kernels, ini)
+        return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
     if args.kernels:
@@ -2638,6 +2956,8 @@ def main(argv=None) -> int:
     results["gd_iteration_slab"], sharded = run_sharded_phase(torch, kernels, solver)
     runs.extend(sharded)
     runs.extend(run_kinfu_phase(torch, kernels))
+    runs.extend(run_fidelity_phase(torch, kernels, fields))
+    runs.append(run_logged_phase(torch, kernels, ini))
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}

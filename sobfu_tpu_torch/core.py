@@ -12,21 +12,46 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+from typing import List, Optional
 
 import torch
 
 
-def get_device_count() -> int:
-    """Number of CUDA devices (reference getCudaEnabledDeviceCount)."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+def get_devices(platform: Optional[str] = None) -> List[torch.device]:
+    """The devices of ``platform`` (``jax.devices(platform)``): "gpu" or
+    "cuda" the CUDA cards, "cpu" the CPU. No platform gives the port's
+    default, the cards. A platform this machine lacks raises RuntimeError."""
+    name = "cuda" if platform in (None, "gpu", "cuda") else platform
+    if name == "cpu":
+        return [torch.device("cpu")]
+    if name == "cuda" and torch.cuda.is_available() and torch.cuda.device_count() > 0:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    raise RuntimeError(f"no device of platform {platform or 'cuda'!r} on this machine")
 
 
-def print_device_info() -> None:
-    """Print each card's name and memory (reference printCudaDeviceInfo)."""
-    for i in range(get_device_count()):
-        props = torch.cuda.get_device_properties(i)
+def get_device_count(platform: Optional[str] = None) -> int:
+    """Number of devices of ``platform`` (reference
+    getCudaEnabledDeviceCount); 0 for a platform this machine lacks."""
+    try:
+        return len(get_devices(platform))
+    except RuntimeError:
+        return 0
+
+
+def print_device_info(device=None) -> None:
+    """Print a device's name (and a card's memory), or each card's
+    (reference printCudaDeviceInfo)."""
+    if device is None:
+        devices = [torch.device("cuda", i) for i in range(get_device_count())]
+    else:
+        devices = [torch.device(device)]
+    for d in devices:
+        if d.type != "cuda":
+            print(f"[{d.index or 0}] {d.type} ({d.type})")
+            continue
+        props = torch.cuda.get_device_properties(d)
         print(
-            f"[{i}] {props.name} (cuda, sm_{props.major}{props.minor}), "
+            f"[{d.index or 0}] {props.name} (cuda, sm_{props.major}{props.minor}), "
             f"{props.total_memory / 2**30:.1f} GiB"
         )
 

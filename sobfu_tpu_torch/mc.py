@@ -6,8 +6,8 @@ zero-weight early-out, compaction of occupied cubes in flat-index order,
 12-edge interpolation, flat per-triangle normals, pose and the reference's
 (x, -y, -z) store convention. Triangles come out in the JAX package's order.
 
-The lookup tables are read by path from ``sobfu_tpu/mc_tables.npz`` (data
-only; nothing of the JAX package is imported).
+The lookup tables are the port's own copy, ``mc_tables.npz`` beside this
+module (the JAX package's tables, byte for byte).
 """
 
 from __future__ import annotations
@@ -19,9 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-_TABLE_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sobfu_tpu", "mc_tables.npz"
-)
+_TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mc_tables.npz")
 
 # cube corner offsets (x, y, z), reference marching_cubes.cu:222-230
 CORNERS = np.asarray(

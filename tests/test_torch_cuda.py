@@ -1064,3 +1064,24 @@ def _vol_params(p):
     return Params(cols=p.cols, rows=p.rows, volume_dims=p.volume_dims, volume_size=p.volume_size,
                   volume_pose=p.volume_pose, intr=p.intr, tsdf_trunc_dist=p.tsdf_trunc_dist,
                   eta=p.tsdf_trunc_dist, tsdf_max_weight=p.tsdf_max_weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("production", [False, True], ids=["additive", "production"])
+def test_fidelity_scene_on_card_matches_the_cpu(cuda, production):
+    """tools/fidelity_torch.py's sphere translation at 32^3 (the JAX CI
+    lanes' warp windows: 4 additive, 2 production; 128 iterations) on the
+    card against the same scene on the CPU: the same iterations; the energy
+    ratio, the mesh RMSE and the psi o psi_inv residual within 1e-4."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "fidelity_port", os.path.join(ROOT, "tools", "fidelity_torch.py"))
+    fid = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fid)
+    ww = 2 if production else 4
+    got, want = (fid.scenario_sphere_translation(32, 128, ww, fid.Lane(dev, production))
+                 for dev in (cuda, torch.device("cpu")))
+    assert got["iters_run"] == want["iters_run"]
+    for key in ("energy_ratio", "mesh_rmse_voxels", "inverse_consistency_max_vox"):
+        assert got[key] == pytest.approx(want[key], abs=1e-4, rel=0), key
