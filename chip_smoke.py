@@ -18,7 +18,9 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 128^3, K=2, 3 warm steps, at 64^3, K=1, 3 warm steps and at
                 128^3, 48 exact steps; F at 128^3 with Kf=1,
                 Kw=2 and Kf=2, Kw=2; B on three channels, warp_field3, at
-                128^3, K=2, inside and beyond the window): atol 1e-5,
+                128^3, exact and K = 1, 2, 4, at the noise fields and at
+                smooth ones (smooth_displacement): bit for bit with its plain
+                version and with three one-channel B launches): atol 1e-5,
                 bitwise for the floor warp, the fuse and F, and E bit for
                 bit against 16 chained A launches; A over four scenes (see
                 11); A also on (12, 16, 20), 16^3 and 64^3 with 3 to 11
@@ -30,7 +32,11 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 device_ms, torch.profiler's device time per call; A's rows
                 through the chunked loop, per iteration. B's exact warp in
                 turns with torch.nn.functional.grid_sample on the same
-                inputs (B, library, library, B) at +-1.8 and +-3.5 voxels
+                inputs (B, library, library, B) at +-1.8 and +-3.5 voxels;
+                warp_field3 so in turns with grid_sample exact at psi_x
+                (+-3.5 voxels of noise) and at a smooth field of 3.5 voxels,
+                K=2 at psi_w and at a smooth field of 1.95, and after phase
+                9 exact and K=2 on its last composition's operands
   4. goldens    the solver on the card against tests/golden/solver_16*.npz
                 (atol 1e-5, the JAX package's frozen CPU results), the
                 pyramid and compositive goldens included
@@ -184,9 +190,10 @@ three lines are the kernel report (JSON; launches summed over the paths
 above that run each kernel; each kernel's ms and device_ms, its plain
 version's time, the bound of its work at the shapes timed — the bytes it
 must move at 3.35 TB/s or its float operations at 67 TFLOP/s, whichever is
-larger — and, for B's exact warp and warp_field3's exact form,
+larger — and, for B's exact warp and warp_field3,
 torch.nn.functional.grid_sample's time; B's row carries its K=2 and mixed
-C=2 variants under "also", warp_field3's its K=2 form), the
+C=2 variants under "also", warp_field3's (exact at psi_x) its rows at the
+smooth fields, at psi_w and on a real composition), the
 nvidia-smi line and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --kernels
@@ -207,8 +214,10 @@ phase's drift ratio at 128^3 for spheres of 0.2, 0.1 and 0.05 m, with the
 the CPU tests hold to the JAX package) and over 12 frames; then a staged
 frame (frame 4: each top-level stage timed on its own) and a profiled
 frame (frame 5, torch.profiler) of the compositive and fine_window
-scenes. Writes DIR/probe.json and each profiled frame's key_averages
-table.
+scenes, and of the compositive scene under the exact composition with the
+inverse warps on (warp_field3's exact form twice a frame: the composition
+and the incremental inverse). Writes DIR/probe.json and each profiled
+frame's key_averages table.
 """
 
 from __future__ import annotations
@@ -385,6 +394,21 @@ def bitwise(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def smooth_displacement(dims, amp: float, seed: int, wavelength: float = 32.0) -> np.ndarray:
+    """A smooth displacement f32[3, Z, Y, X] of amp voxels amplitude: each
+    channel the mean of three sines of the wavelength (voxels) along z, y
+    and x, with phases drawn from a numpy seed. Neighbouring voxels move
+    together, as a solved field's do (unlike independent noise)."""
+    rng = np.random.default_rng(seed)
+    k = 2.0 * np.pi / wavelength
+    axes = np.meshgrid(*[np.arange(n, dtype=np.float64) for n in dims], indexing="ij")
+    out = np.empty((3,) + tuple(dims), np.float32)
+    for c in range(3):
+        phases = rng.uniform(0.0, 2.0 * np.pi, 3)
+        out[c] = amp * sum(np.sin(k * a + p) for a, p in zip(axes, phases)) / 3.0
+    return out
+
+
 def check_kernels(torch, kernels, fields, solver):
     """Phase 3: returns {name: report row} (:func:`row`)."""
     dev = torch.device(DEVICE)
@@ -540,40 +564,30 @@ def check_kernels(torch, kernels, fields, solver):
         max(errs), times, plain, nbytes(psi0, g1, wnc, psi0, wnc),
         n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS + FLOOR_OPS))
 
-    # B on three channels: warp_field3 at K=2 inside and beyond the window,
-    # and exact
+    # B on three channels: warp_field3 bit for bit with its plain version and
+    # with three one-channel B launches, inside and beyond the window, exact,
+    # at the noise and at smooth fields
     errs = []
     field = ident + t(rng.uniform(-2.0, 2.0, (3,) + dims))
-    for K, psi in ((2, psi_w), (2, psi_x), (None, psi_x)):
-        got = kernels.warp_field3(field, psi, K)
-        e = max_abs(got, kernels.warp_field3_plain(field, psi, K))
-        log("kernels", f"warp_field3 K={K} at {'psi_w' if psi is psi_w else 'psi_x'}: "
-            f"max|d|={e:.3e}")
-        check(e <= 1e-5, "warp_field3 disagrees with its plain version")
-        errs.append(e)
-    also = {"K=2": row(max(errs), timed(lambda: kernels.warp_field3(field, psi_w, 2)),
-                       plain_ms(lambda: kernels.warp_field3_plain(field, psi_w, 2)),
-                       nbytes(field, psi_w, field),
-                       n * (TAPS_OPS["window"] + 3 * TRILINEAR_OPS))}
-    # the report's row: the exact form (K None), the function grid_sample
-    # computes on three channels; in turns with it (B, library, library, B)
-    lib, lib_err = library_warp(torch, field, psi_x, kernels.warp_field3(field, psi_x, None))
-    check(lib_err <= 1e-4, "grid_sample does not compute warp_field3's exact form")
-    turns = [timed(f) for f in (lambda: kernels.warp_field3(field, psi_x, None), lib, lib,
-                                lambda: kernels.warp_field3(field, psi_x, None))]
-    log("kernels", "warp_field3 exact at psi_x (+-3.5 voxels), in turns B / grid_sample / "
-        "grid_sample / B: ms " + " / ".join(f"{t['ms']:.4f}" for t in turns) + "; device ms "
-        + " / ".join(f"{t['device_ms']:.4f}" for t in turns)
-        + f" (max|d| from B {lib_err:.3e}); K=2 at psi_w: {also['K=2']['ms']:.4f} ms, "
-        f"{also['K=2']['device_ms']:.4f} ms device")
-    results["warp_field3"] = row(
-        max(errs), {k: min(turns[0][k], turns[3][k]) for k in ("ms", "device_ms")},
-        plain_ms(lambda: kernels.warp_field3_plain(field, psi_x, None)),
-        nbytes(field, psi_x, field), n * (TAPS_OPS["exact"] + 3 * TRILINEAR_OPS),
-        min(turns[1]["ms"], turns[2]["ms"]))
-    results["warp_field3"]["library_device_ms"] = min(turns[1]["device_ms"],
-                                                      turns[2]["device_ms"])
-    results["warp_field3"]["also"] = also
+    smooth_x = ident + t(smooth_displacement(dims, 3.5, 1))   # the exact form's
+    smooth_w = ident + t(smooth_displacement(dims, 1.95, 2))  # inside the K=2 window
+    for K, psi, label in ((2, psi_w, "psi_w"), (2, psi_x, "psi_x"), (None, psi_x, "psi_x"),
+                          (None, smooth_x, "smooth 3.5"), (2, smooth_w, "smooth 1.95"),
+                          (1, psi_w, "psi_w"), (4, psi_x, "psi_x")):
+        errs.append(check_field3(kernels, field, psi, K, f"K={K} at {label}"))
+    # the report's row: the exact form at psi_x; under "also" the exact form at
+    # the smooth field and K=2 at psi_w and at the smooth field. Each in turns
+    # with grid_sample on the same operands (B, library, library, B); inside the
+    # K=2 window grid_sample computes the same function
+    rows = {}
+    for label, K, psi in (("exact, psi_x (+-3.5 voxels)", None, psi_x),
+                          ("exact, smooth 3.5", None, smooth_x),
+                          ("K=2, psi_w (+-1.8 voxels)", 2, psi_w),
+                          ("K=2, smooth 1.95", 2, smooth_w)):
+        rows[label] = field3_row(torch, kernels, field, psi, K, label, ident, max(errs))
+    main, *rest = rows
+    results["warp_field3"] = rows[main]
+    results["warp_field3"]["also"] = {k: rows[k] for k in rest}
 
     results["gd_iteration_scenes"] = check_gd_iteration_scenes(torch, kernels, fields, solver)
 
@@ -792,6 +806,74 @@ def library_warp(torch, vol, psi, want):
                              align_corners=True)
 
     return call, max_abs(call()[0], want)
+
+
+def field3_by_channel(kernels, field, pos, K):
+    """warp_field3's function as three one-channel B launches (kernels.warp)."""
+    import torch
+
+    return torch.cat([kernels.warp(field[c:c + 1], pos, K, (False,)) for c in range(3)])
+
+
+def check_field3(kernels, field, pos, K, label) -> float:
+    """warp_field3 bit for bit with its plain version and with three
+    one-channel B launches on the same operands; returns its max |difference|
+    from the plain version."""
+    got = kernels.warp_field3(field, pos, K)
+    ref = kernels.warp_field3_plain(field, pos, K)
+    plain = bitwise(got, ref)
+    by_channel = bitwise(got, field3_by_channel(kernels, field, pos, K))
+    log("kernels", f"warp_field3 {label}: bitwise with its plain version {plain}, with three "
+        f"one-channel B launches {by_channel}")
+    check(plain and by_channel, f"warp_field3 {label} is not bit for bit with its plain "
+          "version and three one-channel B launches")
+    return max_abs(got, ref)
+
+
+def field3_row(torch, kernels, field, pos, K, label, ident, err):
+    """warp_field3 at (field, pos, K) in turns with grid_sample (B, library,
+    library, B): its report row (max_abs_err err; the faster of B's two
+    turns), grid_sample's time as library_ms and library_device_ms. The exact
+    form, and the K form where every displacement from ident is under K, is
+    grid_sample's function (held to 1e-4)."""
+    want = kernels.warp_field3(field, pos, K)
+    lib, lib_err = library_warp(torch, field, pos, want)
+    if K is None or float((pos - ident).abs().max()) < K:
+        check(lib_err <= 1e-4, f"grid_sample does not compute warp_field3 {label}")
+
+    def call():
+        return kernels.warp_field3(field, pos, K)
+
+    turns = [timed(call), timed(lib), timed(lib), timed(call)]
+    log("kernels", f"warp_field3 {label}, in turns B / grid_sample / grid_sample / B: ms "
+        + " / ".join(f"{t['ms']:.4f}" for t in turns) + "; device ms "
+        + " / ".join(f"{t['device_ms']:.4f}" for t in turns)
+        + f" (max|d| from B {lib_err:.3e})")
+    taps = TAPS_OPS["exact" if K is None else "window"]
+    r = row(err, {k: min(turns[0][k], turns[3][k]) for k in ("ms", "device_ms")},
+            plain_ms(lambda: kernels.warp_field3_plain(field, pos, K)),
+            nbytes(field, pos, want), field[0].numel() * (taps + 3 * TRILINEAR_OPS),
+            min(turns[1]["ms"], turns[2]["ms"]))
+    r["library_device_ms"] = min(turns[1]["device_ms"], turns[2]["device_ms"])
+    return r
+
+
+def field3_real_rows(torch, kernels, fields, ops):
+    """warp_field3 on the operands of a real composition (the compositive
+    phase's last, psi0 o g at 128^3), exact and K=2: bit for bit with its
+    plain version and three one-channel B launches, then each in turns with
+    grid_sample (:func:`field3_row`). Returns the rows by label."""
+    field, pos = ops["field"], ops["pos"]
+    ident = fields.identity_field(tuple(field.shape[1:]), device=field.device)
+    log("kernels", f"warp_field3 on the compositive phase's last composition (K={ops['K']}): "
+        f"max |g - id| {float((pos - ident).abs().max()):.4f} voxels, max |psi0 - id| "
+        f"{float((field - ident).abs().max()):.4f}")
+    rows = {}
+    for K in (None, 2):
+        label = f"{'exact' if K is None else f'K={K}'}, a real composition"
+        err = check_field3(kernels, field, pos, K, label)
+        rows[label] = field3_row(torch, kernels, field, pos, K, label, ident, err)
+    return rows
 
 
 def check_gd_iteration_scenes(torch, kernels, fields, solver):
@@ -1148,8 +1230,10 @@ def drift(torch, fusion, step, n_frames):
             float(disp[1][band].mean()) / total)
 
 
-def run_compositive(torch, kernels, params, n_frames, step, expect):
-    """The compositive phase: the frames, then the drift check of
+def run_compositive(torch, kernels, params, n_frames, step, expect, operands):
+    """The compositive phase: the frames (the dict operands gets cloned
+    copies of warp_field3's last operands: field, pos, K), then the drift
+    check of
     tests/test_pipeline.py:497-510 — the accumulated motion exceeds K + 1
     voxels, the band-mean x displacement tracks more than 0.55 of it and
     the band-mean y stays under 0.25 of it. That bound was set on a sphere
@@ -1160,8 +1244,15 @@ def run_compositive(torch, kernels, params, n_frames, step, expect):
     loop keeps no inverse, so it computes the exact cold one (C) and the
     exact warps (B). Returns the launch counts of the frames and the
     getter."""
-    counts, fusion = run_frames(torch, kernels, params, n_frames, "compositive", expect, step,
-                                radius=0.05)
+    field3 = kernels.warp_field3
+
+    def keep(field, pos, K):
+        operands.update(field=field.clone(), pos=pos.clone(), K=K)
+        return field3(field, pos, K)
+
+    with patched((kernels, "warp_field3", keep)):
+        counts, fusion = run_frames(torch, kernels, params, n_frames, "compositive", expect,
+                                    step, radius=0.05)
     s = fusion.solver
     log("compositive", f"solver: mode {s.mode}, levels {s.pyramid_levels}, fused {s.fused}, "
         f"warp_window {s.warp_window}, incremental_inverse {s.incremental_inverse}")
@@ -1728,10 +1819,12 @@ def top_level_clock(*targets):
     return TopLevelClock(*targets)
 
 
-def profile_cell(torch, params, step, radius, name, out):
+def profile_cell(torch, params, step, radius, name, out, inv_warps=False):
     """Frames 0-3 of the scene warm up; frame 4 runs staged (each top-level
-    stage timed on its own), frame 5 under torch.profiler. Returns the
-    summary and writes the key_averages table under out."""
+    stage timed on its own), frame 5 under torch.profiler; the inverse warps
+    on where inv_warps (the logged loop: the incremental inverse and the
+    exact tails), else off (the no-log loop). Returns the summary and writes
+    the key_averages table under out."""
     from torch.profiler import ProfilerActivity, profile
 
     from sobfu_tpu_torch import pipeline, pyramid, solver
@@ -1740,7 +1833,7 @@ def profile_cell(torch, params, step, radius, name, out):
     device_us = tool("profile_torch_frame")._device_us
     frames = render_frames(params, 6, step, radius)
     fusion = pipeline.SobFusion(params, device=DEVICE)
-    fusion.need_inv_warps = False
+    fusion.need_inv_warps = inv_warps
     for depth in frames[:4]:
         fusion(depth)
     torch.cuda.synchronize()
@@ -1819,6 +1912,12 @@ def probe(torch, kernels, ini, out):
             + ", ".join(f"{rx:.4f}" for rx, _ in ratios) + f"; mean dy / drift {ratios[-1][1]:.4f}")
     result["profile"]["compositive"] = profile_cell(
         torch, compositive_params(ini), step, 0.05, "compositive", out)
+    # the exact composition (warp_field3's exact form) and, with the inverse
+    # warps on, the incremental inverse's exact sample
+    params = compositive_params(ini)
+    params.fused_pallas = False
+    result["profile"]["compositive_exact"] = profile_cell(
+        torch, params, step, 0.05, "compositive_exact", out, inv_warps=True)
     params = tool("profile_torch_frame").production_params(ini, DIM, 2)
     params.fine_window = 1
     result["profile"]["fine_window"] = profile_cell(torch, params, 0.006, 0.2, "fine_window", out)
@@ -2686,10 +2785,11 @@ def recording(torch, kernels, seen):
 
 def replay(torch, kernels, fields, seen, lane):
     """Each signature a fidelity lane ran (:func:`recording`), its kernel
-    against its plain version on the card. B, warp_field3 and C on the
-    lane's own operands within 1e-5 (B's floor channels bit for bit), D bit
-    for bit. A (with its energy) and E on the lane's tnp, canonical and live
-    volumes, taps and weights, at a psi drawn around the identity (A: within
+    against its plain version on the card. B and C on the lane's own operands
+    within 1e-5 (B's floor channels bit for bit), warp_field3 bit for bit
+    (and with three one-channel B launches), D bit for bit. A (with its
+    energy) and E on the lane's tnp, canonical and live volumes, taps and
+    weights, at a psi drawn around the identity (A: within
     K + 0.5 voxels, past the window; E: within 0.9 K; exact: 2.5) with a
     velocity of 0.1 where there is momentum: atol 1e-5 on the state, rtol
     1e-5 on the rows, as phase 3 holds them. Returns the largest
@@ -2723,6 +2823,8 @@ def replay(torch, kernels, fields, seen, lane):
             elif name == "warp":
                 ok = e <= 1e-5 and all(bitwise(got[0][c], ref[0][c])
                                        for c, floor in enumerate(a[3]) if floor)
+            elif name == "warp_field3":
+                ok = bitwise(got[0], ref[0]) and bitwise(got[0], field3_by_channel(kernels, *a))
             else:
                 ok = e <= 1e-5
             what = f"max|d| {e:.3e}"
@@ -2943,8 +3045,10 @@ def main(argv=None) -> int:
     runs.append(run_pyramid(torch, kernels, production_params(ini, 2 * DIM, 3), 2,
                             "pyramid256", pyramid_kernels))
 
+    real = {}
     runs.append(run_compositive(torch, kernels, compositive_params(ini), 6, 0.009,
-                                ("warp", "gd_multi", "gd_iteration", "warp_field3")))
+                                ("warp", "gd_multi", "gd_iteration", "warp_field3"), real))
+    results["warp_field3"]["also"].update(field3_real_rows(torch, kernels, fields, real))
 
     params = production_params(ini, DIM, 2)
     params.fine_window = 1

@@ -17,8 +17,9 @@ inverse_fixed_point estimate_inverse_window_pallas_multi :3061  csrc/inverse.cu
 warp_fuse (D)       window_warp_fuse_pallas :607                csrc/warp_fuse.cu
 gd_multi (E)        fused_gd_multi_fold :2805                   csrc/gd_multi.cu
 compose_weight (F)  compose_weight_pallas :3223                 csrc/compose_weight.cu
-warp_field3 (B,     window_warp_field3_pallas :3309             csrc/warp.cu
-C=3)
+warp_field3 (B,     window_warp_field3_pallas :3309 (the K      csrc/warp.cu
+C=3)                form; the exact form is XLA's
+                    sobfu_tpu/fields.py sample_field_trilinear)
 ==================  ==========================================  =============
 
 Each wrapper takes the JAX package's layouts and a window half-width ``K``
@@ -94,6 +95,13 @@ KERNELS = {
 
 # voxels per tile of the kernels' reductions (csrc/sampling.cuh kBlock)
 TILE = 256
+
+# kernel B's launch shape by channel count (csrc/warp.cu launch_warpn):
+# (voxels a thread, tile width, tile depth in y); a block takes a tile of
+# width x depth x TILE / (width depth) voxels stacked that many voxels a
+# thread deep in z, or with width 0 the volume's rows (voxel b * TILE * per
+# + t + j * TILE). C > 3 runs one voxel a thread in rows.
+WARP_LAUNCH = {1: (2, 32, 4), 2: (1, 0, 0), 3: (1, 32, 4)}
 
 
 # the solve loops: host reads of the device's stop state (one per call of
@@ -219,9 +227,11 @@ def warp_field3_plain(field, pos, K: Optional[int]):
 
 def warp_field3(field, pos, K: Optional[int]):
     """Kernel B with C=3 trilinear channels: the 3-channel field f32[3,Z,Y,X]
-    sampled at pos, the taps computed once for all three (the compositive
-    composition psi0 o (id + delta)). K None = the exact sampler. Counted
-    under its own name, apart from :func:`warp`."""
+    sampled at pos, the taps and corner offsets computed once for all three
+    (the compositive composition psi0 o (id + delta), the incremental
+    inverse's sample). K None = the exact sampler. Bit for bit with its plain
+    version and with three one-channel :func:`warp` launches; one launch,
+    counted under its own name, apart from :func:`warp`."""
     if field.shape[0] != 3:
         raise ValueError(f"warp_field3 samples a 3-channel field, got {field.shape[0]}")
     if _on_cpu(field):

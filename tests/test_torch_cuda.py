@@ -282,15 +282,76 @@ def test_compose_weight_kernel_bitwise(cuda, Kf, Kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,amp", [(1, 0.95), (2, 1.95), (2, 3.5), (None, 3.5)])
 def test_warp_field3_kernel_matches_plain(cuda, K, amp):
-    """B on three channels, inside and beyond the window and exact; counted
-    under warp_field3, not warp."""
+    """B on three channels, inside and beyond the window and exact, bit for
+    bit; counted under warp_field3, not warp."""
     d = _inputs(cuda, amp)
     field = _inputs(cuda, 2.0, seed=9)["psi"]
     kernels.reset_launch_counts()
     got = kernels.warp_field3(field, d["psi"], K)
     assert kernels.launch_counts["warp_field3"] == 1 and kernels.launch_counts["warp"] == 0
-    torch.testing.assert_close(got, kernels.warp_field3_plain(field, d["psi"], K), atol=1e-5,
-                               rtol=0)
+    assert torch.equal(got, kernels.warp_field3_plain(field, d["psi"], K))
+
+
+def _field3_operands(dev, dims, kind, seed=21):
+    """(field, pos) on the card: the field id + U(-2, 2); pos id + U(-3.5,
+    3.5) ("noise"), chip_smoke.py's smooth field of 3.5 voxels ("smooth"), or
+    id + U(-6, 6) with a tenth of the voxels 40 voxels off ("outside")."""
+    rng = np.random.default_rng(seed)
+    ident = np.stack(np.meshgrid(*[np.arange(d) for d in dims], indexing="ij")[::-1])
+    field = ident + rng.uniform(-2.0, 2.0, (3,) + dims)
+    if kind == "smooth":
+        pos = ident + _chip_smoke().smooth_displacement(dims, 3.5, seed)
+    else:
+        pos = ident + rng.uniform(-3.5 if kind == "noise" else -6.0,
+                                  3.5 if kind == "noise" else 6.0, (3,) + dims)
+        if kind == "outside":
+            far = rng.random(dims) < 0.1
+            pos[:, far] += rng.choice([-40.0, 40.0], (3, int(far.sum())))
+    return (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (field, pos))
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["noise", "smooth", "outside"])
+@pytest.mark.parametrize("K", [None, 1, 2, 4])
+@pytest.mark.parametrize("dims", [(12, 16, 20), (17, 17, 17), (128, 128, 128)])
+def test_warp_field3_bitwise_with_plain_and_by_channel(cuda, dims, K, kind):
+    """warp_field3 (3-D tiles) bit for bit with its plain version and with
+    three one-channel B launches, in one launch of its own."""
+    field, pos = _field3_operands(cuda, dims, kind)
+    kernels.reset_launch_counts()
+    got = kernels.warp_field3(field, pos, K)
+    assert kernels.launch_counts == {k: int(k == "warp_field3") for k in kernels.launch_counts}
+    assert torch.equal(got, kernels.warp_field3_plain(field, pos, K))
+    by_channel = torch.cat([kernels.warp(field[c:c + 1], pos, K, (False,)) for c in range(3)])
+    assert torch.equal(got, by_channel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("K", [None, 2])
+@pytest.mark.parametrize("floor", [(False,), (False, True), (False, True, False, True)])
+def test_warp_forms_at_128_match_plain(cuda, floor, K, kind):
+    """B's one-channel (3-D tiles, two voxels a thread), mixed two-channel
+    (rows) and generic (C = 4) forms at the main path's 128^3: atol 1e-5 on
+    the trilinear channels, bitwise on the floor ones, as on the small grids."""
+    field, pos = _field3_operands(cuda, (128,) * 3, kind)
+    vol = torch.cat([field, field[:1].floor()])[: len(floor)].contiguous()
+    got = kernels.warp(vol, pos, K, floor)
+    want = kernels.warp_plain(vol, pos, K, floor)
+    for c, fl in enumerate(floor):
+        if fl:
+            assert torch.equal(got[c], want[c]), c
+        else:
+            torch.testing.assert_close(got[c], want[c], atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

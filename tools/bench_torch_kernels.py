@@ -1,8 +1,8 @@
-"""Kernels B, A (and its slab form), E and C of the PyTorch port timed on
-one CUDA card, for comparing two trees inside one call.
+"""Kernels B (with warp_field3), A (and its slab form), E and C of the PyTorch
+port timed on one CUDA card, for comparing two trees inside one call.
 
     python tools/bench_torch_kernels.py [--root DIR] [--label NAME] [--out FILE]
-                                        [--only B,A,slab,E,C] [--slab-cards N]
+                                        [--only B,F3,A,slab,E,C] [--slab-cards N]
 
 imports ``sobfu_tpu_torch`` from DIR (default: this checkout), builds its
 kernels and times, at the main path's shapes and with chip_smoke.py's two
@@ -13,7 +13,12 @@ yardsticks (``cuda_ms``: one event pair around a run of 20 calls, median of
       psi_w (+-1.8), each in turns with torch.nn.functional.grid_sample on
       the same inputs (B, library, library, B); the K=2 warp at psi_w; the
       mixed warp (C = 2: a trilinear and a floor channel, K=2, the tails'
-      warp); three trilinear channels (warp_field3, K=2)
+      warp); the exact warp at a smooth field of 3.5 voxels, the K=2 and
+      the mixed warp at one of 1.95 (chip_smoke.smooth_displacement: sines
+      of wavelength 32 voxels)
+  F3  warp_field3 (B on three channels) exact at psi_x and at the smooth
+      field of 3.5 voxels, K=2 at psi_w, each in turns with grid_sample on
+      the same three channels (B, library, library, B)
   A   one iteration at 128^3, K=2, 7 taps, without and with momentum 0.95;
       at 64^3, K=1, momentum 0.95; over S = 4 scenes of 128^3, K=2,
       momentum 0.95; and, where the tree has kernels.GdLoop, the same through
@@ -63,7 +68,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=HERE, help="the tree whose sobfu_tpu_torch is timed")
     ap.add_argument("--label", default=None)
     ap.add_argument("--out", default=None, help="append the JSON line to this file")
-    ap.add_argument("--only", default="B,A,slab,E,C", help="the parts to time")
+    ap.add_argument("--only", default="B,F3,A,slab,E,C", help="the parts to time")
     ap.add_argument("--slab-cards", type=int, default=1, choices=(1, 2, 4),
                     help="the cards the slab loop's 4 slabs lie on")
     args = ap.parse_args(argv)
@@ -73,8 +78,9 @@ def main(argv=None) -> int:
         print(f"bench_torch_kernels: needs {args.slab_cards} CUDA card(s)", file=sys.stderr)
         return 2
     parts = set(args.only.split(","))
-    if parts - {"B", "A", "slab", "E", "C"}:
-        ap.error(f"--only: unknown parts {sorted(parts - {'B', 'A', 'slab', 'E', 'C'})}")
+    known = {"B", "F3", "A", "slab", "E", "C"}
+    if parts - known:
+        ap.error(f"--only: unknown parts {sorted(parts - known)}")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -117,8 +123,10 @@ def main(argv=None) -> int:
     out = {"label": args.label or root, "card": smoke.nvidia_smi(),
            "torch": torch.__version__}
 
+    smooth_x = ident + t(smoke.smooth_displacement(dims, 3.5, 1))
+    smooth_w = ident + t(smoke.smooth_displacement(dims, 1.95, 2))
     for name, psi in (("psi_x", psi_x), ("psi_w", psi_w)) if "B" in parts else ():
-        lib, err = smoke.library_warp(torch, tg, psi, kernels.warp(vol1, psi, None, (False,))[0])
+        lib, err = smoke.library_warp(torch, vol1, psi, kernels.warp(vol1, psi, None, (False,)))
         if err > 1e-4:
             raise RuntimeError(f"grid_sample differs from B at {name}: {err}")
 
@@ -131,7 +139,21 @@ def main(argv=None) -> int:
     if "B" in parts:
         out["warp_K2_psi_w"] = both(lambda: kernels.warp(vol1, psi_w, 2, (False,)))
         out["warp_mixed_K2_psi_w"] = both(lambda: kernels.warp(vol2, psi_w, 2, (False, True)))
-        out["warp_field3_K2_psi_w"] = both(lambda: kernels.warp_field3(field, psi_w, 2))
+        out["warp_exact_smooth"] = both(lambda: kernels.warp(vol1, smooth_x, None, (False,)))
+        out["warp_K2_smooth"] = both(lambda: kernels.warp(vol1, smooth_w, 2, (False,)))
+        out["warp_mixed_K2_smooth"] = both(lambda: kernels.warp(vol2, smooth_w, 2, (False, True)))
+    for name, K, psi in ((("exact_psi_x", None, psi_x), ("exact_smooth", None, smooth_x),
+                          ("K2_psi_w", 2, psi_w)) if "F3" in parts else ()):
+        lib, err = smoke.library_warp(torch, field, psi, kernels.warp_field3(field, psi, K))
+        if err > 1e-4:
+            raise RuntimeError(f"grid_sample differs from warp_field3 at {name}: {err}")
+
+        def f3_call(psi=psi, K=K):
+            return kernels.warp_field3(field, psi, K)
+
+        turns = [both(f3_call), both(lib), both(lib), both(f3_call)]
+        out[f"warp_field3_{name}"] = [turns[0], turns[3]]
+        out[f"grid_sample_field3_{name}"] = [turns[1], turns[2]]
 
     for mu in (None, 0.95) if "A" in parts else ():
         a = (psi_w, tnp, vel, tg, live, taps, 0.05, 0.2, mu, 2)
