@@ -183,6 +183,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 frames, on the card and on the CPU: the incremental inverse
                 and the exact tails; psi and psi_inv within 8 ulps of the
                 largest coordinate, the tails against B's plain version
+ 17. bench      bench_torch.main in this process on the card (every
+                cell at bench.py's grids, counts and repeats), its JSON
+                line printed tagged [bench]: no cell may fail, every
+                top-level figure is set and finite (a null leaf only with
+                its reason), every convergence cell ran iterations with a
+                finite e_ratio, and A, E, B, C, D and warp_field3 launched;
+                then tools/bench_multiscene_stream_torch.py (64^3, 6
+                frames: A over scenes must launch, every scene must track
+                its drift) and tools/check_inverse_multigrid_torch.py
+                (256^3: every row's two figures finite), each tool's JSON
+                line printed tagged [bench]
 The launch counts of each path are zeroed just before it and read just
 after; kernel A's count is the iterations that ran on the card (the
 device's counter), its launches after a stop are printed apart. The last
@@ -203,7 +214,7 @@ stops after phase 4 (the build, the kernel checks, the goldens).
     python3 chip_smoke.py --sharded
 
 runs the build and phase 13 alone; --kinfu phase 14, --fidelity phases 15
-and 16 (phase 15's CPU half at 64^3 too).
+and 16 (phase 15's CPU half at 64^3 too), --bench phase 17.
 
     python3 chip_smoke.py --probe DIR
 
@@ -223,9 +234,11 @@ frame's key_averages table.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib.util
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1287,21 +1300,11 @@ def run_compositive(torch, kernels, params, n_frames, step, expect, operands):
 MULTISCENE_DIRS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0))
 
 
-def render_dists(H, W, fx, fy, cx, cy, centre, radius):
-    """Metric ray-length map of a sphere (the ray caster of
-    tools/bench_multiscene_stream.py:38-51; that module imports JAX)."""
-    u = np.arange(W, dtype=np.float64)[None, :]
-    v = np.arange(H, dtype=np.float64)[:, None]
-    dx = np.broadcast_to((u - cx) / fx, (H, W))
-    dy = np.broadcast_to((v - cy) / fy, (H, W))
-    d = np.stack([dx, dy, np.ones((H, W))], axis=-1)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    c = np.asarray(centre, np.float64)
-    b = d @ c
-    disc = b * b - (c @ c - radius * radius)
-    t = b - np.sqrt(np.maximum(disc, 0.0))
-    hit = (disc > 0) & (t > 0)
-    return np.where(hit, t, 0.0).astype(np.float32)
+@functools.lru_cache(maxsize=None)
+def stream_tool():
+    """tools/bench_multiscene_stream_torch.py (its ray caster, render_dists,
+    and its main), loaded once."""
+    return tool("bench_multiscene_stream_torch")
 
 
 def multiscene_stream(torch, S, n_frames):
@@ -1331,14 +1334,15 @@ def multiscene_stream(torch, S, n_frames):
     vol2cam[:3, 3] = (-size / 2, -size / 2, 0.15)
     z_cam, r_sph = size / 2 + 0.15, 0.05
     zero = torch.zeros(dims, dtype=torch.float32, device=dev)
-    d0 = torch.as_tensor(render_dists(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
+    render = stream_tool().render_dists
+    d0 = torch.as_tensor(render(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
     tg1, wg1 = integrate_dists(zero, zero, d0, vol2cam, intr, (vs,) * 3, trunc, eta)
     psi1 = fields.identity_field(dims, device=dev)
     state = (psi1.expand(S, -1, -1, -1, -1).contiguous(), tg1.expand(S, -1, -1, -1).contiguous(),
              wg1.expand(S, -1, -1, -1).contiguous(), psi1.expand(S, -1, -1, -1, -1).contiguous())
     step_m = min(0.9, 1.8 / n_frames) * vs
     frames = [torch.as_tensor(np.stack([
-        render_dists(H, W, *intr, (d[0] * step_m * i, d[1] * step_m * i, z_cam), r_sph)
+        render(H, W, *intr, (d[0] * step_m * i, d[1] * step_m * i, z_cam), r_sph)
         for d in MULTISCENE_DIRS[:S]]), device=dev) for i in range(n_frames + 1)]
     scalars = (intr, (vs,) * 3, trunc, eta, 64.0, taps, 0.1, 0.2, 96, 1e-3)
     return step, state, frames, np.broadcast_to(vol2cam, (S, 4, 4)), scalars
@@ -2357,14 +2361,15 @@ def drifting_pair(torch, dims, n_frames):
     vol2cam[:3, 3] = (-size / 2, -size / 2, 0.15)
     z_cam, r_sph = size / 2 + 0.15, 0.05
     zero = torch.zeros(dims, dtype=torch.float32, device=dev)
-    d0 = torch.as_tensor(render_dists(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
+    render = stream_tool().render_dists
+    d0 = torch.as_tensor(render(H, W, *intr, (0.0, 0.0, z_cam), r_sph), device=dev)
     tg1, wg1 = integrate_dists(zero, zero, d0, vol2cam, intr, (vs,) * 3, trunc, eta)
     psi1 = fields.identity_field(dims, device=dev)
     state = (psi1.expand(2, -1, -1, -1, -1).contiguous(), tg1.expand(2, -1, -1, -1).contiguous(),
              wg1.expand(2, -1, -1, -1).contiguous(), psi1.expand(2, -1, -1, -1, -1).contiguous())
     step = 0.6 * vs
     frames = [torch.as_tensor(np.stack([
-        render_dists(H, W, *intr, (d[0] * step * i, d[1] * step * i, z_cam), r_sph)
+        render(H, W, *intr, (d[0] * step * i, d[1] * step * i, z_cam), r_sph)
         for d in ((1, 0), (0, 1))]), device=dev) for i in range(n_frames + 1)]
     scalars = (intr, (vs,) * 3, trunc, eta, 64.0, solver.sobolev_filter_1d(7, 0.1), 0.1, 0.2,
                96, 1e-3)
@@ -2907,6 +2912,82 @@ def run_fidelity_phase(torch, kernels, fields, cpu_dims=(32,)):
 LOGGED_DIM, LOGGED_FRAMES, LOGGED_STEP, LOGGED_RADIUS = 32, 4, 0.03, 0.2
 
 
+# phase 17: the kernels bench_torch.py must launch
+BENCH_KERNELS = ("gd_iteration", "gd_multi", "warp", "inverse_fixed_point", "warp_fuse",
+                 "warp_field3")
+
+
+def json_main(main, argv, phase):
+    """main(argv) in this process with its standard output captured: (exit
+    code, its last line parsed as JSON, seconds); the line is printed tagged
+    with the phase."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    secs = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(phase, line)
+    return rc, json.loads(line), secs
+
+
+def leaves(prefix, value):
+    """(dotted key, value) of every leaf of a JSON object."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            yield from leaves(f"{prefix}.{k}" if prefix else k, v)
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            yield from leaves(f"{prefix}[{i}]", v)
+    else:
+        yield prefix, value
+
+
+def run_bench_phase(torch, kernels):
+    """Phase 17: bench_torch.py and the port's two bench tools on the card.
+    Returns the launch counts of the three runs."""
+    import bench_torch
+
+    kernels.reset_launch_counts()
+    rc, out, secs = json_main(bench_torch.main, ["--device", DEVICE], "bench")
+    counts = dict(kernels.launch_counts)
+    log("bench", f"bench_torch.py: exit {rc} in {secs:.2f} s (each cell's seconds and peak "
+        f"memory on stderr); launch counts {counts}")
+    check(rc == 0 and out["errors"] == {}, f"bench: cells failed: {out['errors']}")
+    unset = [k for k, v in out.items() if v is None]
+    check(not unset, f"bench: figures not set: {unset}")
+    for key, v in leaves("", out):
+        check(v is not None or key in out["null_reasons"], f"bench: {key} null without a reason")
+        check(not isinstance(v, float) or math.isfinite(v), f"bench: {key} = {v}")
+    for key in ("convergence_mode", "convergence_mode_256cubed", "convergence_mode_512cubed"):
+        cell = out[key]
+        check(cell["iters"] > 0 and math.isfinite(cell.get("e_ratio", 0.0)),
+              f"bench: {key} {cell}")
+    for name in BENCH_KERNELS:
+        check(counts[name] > 0, f"bench: kernel {name} was never launched")
+
+    kernels.reset_launch_counts()
+    rc, stream, secs = json_main(stream_tool().main, ["--device", DEVICE], "bench")
+    stream_counts = dict(kernels.launch_counts)
+    log("bench", f"tools/bench_multiscene_stream_torch.py: exit {rc} in {secs:.2f} s; launch "
+        f"counts {stream_counts}")
+    check(rc == 0 and stream["tracking_ok"] is True, "bench: the multiscene stream does not track")
+    check(stream_counts["gd_iteration_scenes"] > 0, "bench: A over scenes was never launched")
+
+    kernels.reset_launch_counts()
+    rc, inv, secs = json_main(tool("check_inverse_multigrid_torch").main,
+                              ["--device", DEVICE], "bench")
+    inv_counts = dict(kernels.launch_counts)
+    log("bench", f"tools/check_inverse_multigrid_torch.py: exit {rc} in {secs:.2f} s; launch "
+        f"counts {inv_counts}")
+    figures = [v for row in inv["rows"].values() for v in row.values()]
+    check(rc == 0 and len(figures) == 16 and all(math.isfinite(v) for v in figures),
+          f"bench: the inverse tool's figures {inv['rows']}")
+    for name in ("inverse_fixed_point", "warp_field3"):
+        check(inv_counts[name] > 0, f"bench: the inverse tool never launched {name}")
+    return [counts, stream_counts, inv_counts]
+
+
 def run_logged_phase(torch, kernels, ini):
     """Phase 16: the compositive frame loop with the inverse warps on (the
     logged loop, need_inv_warps), which runs two paths nothing else runs on
@@ -2990,6 +3071,8 @@ def main(argv=None) -> int:
                     help="run the build and phase 14 (kinfu) alone")
     ap.add_argument("--fidelity", action="store_true",
                     help="run the build and phases 15 (fidelity) and 16 (logged) alone")
+    ap.add_argument("--bench", action="store_true",
+                    help="run the build and phase 17 (bench_torch.py and its tools) alone")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3027,6 +3110,9 @@ def main(argv=None) -> int:
         run_fidelity_phase(torch, kernels, fields, cpu_dims=(32, 64))
         run_logged_phase(torch, kernels, ini)
         return 0
+    if args.bench:
+        run_bench_phase(torch, kernels)
+        return 0
     results = check_kernels(torch, kernels, fields, solver)
     check_goldens(torch, fields, solver)
     if args.kernels:
@@ -3062,6 +3148,7 @@ def main(argv=None) -> int:
     runs.extend(run_kinfu_phase(torch, kernels))
     runs.extend(run_fidelity_phase(torch, kernels, fields))
     runs.append(run_logged_phase(torch, kernels, ini))
+    runs.extend(run_bench_phase(torch, kernels))
     torch.cuda.synchronize()
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}

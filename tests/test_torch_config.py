@@ -59,7 +59,8 @@ def test_port_imports_no_jax():
     """The port never imports jax or sobfu_tpu (whose __init__ pulls in jax),
     nor do the port's CLI gate tool, the rigid scene renderer, its fidelity
     harness, mesh comparison and scene generator, its kernel bench and
-    warp_field3 probe, and chip_smoke.py."""
+    warp_field3 probe, its headline bench (bench_torch.py) and its multiscene
+    and multigrid-inverse tools, and chip_smoke.py."""
     code = (
         "import sys, importlib.util, sobfu_tpu_torch, sobfu_tpu_torch.cli, "
         "sobfu_tpu_torch.ops.kernels, sobfu_tpu_torch.mc, sobfu_tpu_torch.io, "
@@ -74,7 +75,9 @@ def test_port_imports_no_jax():
         "('scene', 'tools/render_rigid_scene.py'), ('smoke', 'chip_smoke.py'), "
         "('fidelity', 'tools/fidelity_torch.py'), ('meshes', 'tools/compare_meshes_torch.py'), "
         "('generator', 'tools/make_synthetic_scene_torch.py'), "
-        "('bench', 'tools/bench_torch_kernels.py'), ('probe', 'tools/probe_warp_field3.py')):\n"
+        "('bench', 'tools/bench_torch_kernels.py'), ('probe', 'tools/probe_warp_field3.py'), "
+        "('headline', 'bench_torch.py'), ('stream', 'tools/bench_multiscene_stream_torch.py'), "
+        "('inverse', 'tools/check_inverse_multigrid_torch.py')):\n"
         "    spec = importlib.util.spec_from_file_location(name, path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
