@@ -5,7 +5,7 @@
 
 Phases, one line each; any failure exits non-zero before the result lines:
   1. device     nvidia-smi name and power limit, torch / CUDA versions
-  2. build      the six kernel sources of sobfu_tpu_torch/csrc, one nvcc
+  2. build      the eight kernel sources of sobfu_tpu_torch/csrc, one nvcc
                 per source, all started together
   3. kernels    each kernel against its plain torch version on the same
                 CUDA tensors at the path's shapes (A-D at 128^3, 7 taps,
@@ -37,13 +37,26 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 (+-3.5 voxels of noise) and at a smooth field of 3.5 voxels,
                 K=2 at psi_w and at a smooth field of 1.95, and after phase
                 9 exact and K=2 on its last composition's operands
+ 3b. frontend  the front end's kernels (ops/frontend.py) against their
+                plain versions on the card: P (preprocess_depth: the
+                bilateral filter, the truncation and the ray lengths) at the
+                ini's 640x480 with k = 7, 5, 3, truncation on and off, and at
+                479x637, bit for bit; I (integrate_dists) at 128^3 on the
+                axis-aligned pose, a z-slab (z_offset 64) and over 1.2 m (a
+                voxel size that is no power of two), bit for bit, and
+                on a pose turned 4 degrees about y and 2 about x (voxels that
+                read another pixel counted, at most 64; the rest within
+                1e-6); first how torch rounds addcmul and the einsum on the
+                card. Each kernel's ms, device_ms, bound and plain ms
   4. goldens    the solver on the card against tests/golden/solver_16*.npz
                 (atol 1e-5, the JAX package's frozen CPU results), the
                 pyramid and compositive goldens included
   5. main       params/params_umbrella.ini + WARP_WINDOW=2: 4 frames of
                 640x480 depth (a translating sphere, rendered in memory)
                 through SobFusion(device="cuda") with MAX_ITER=2048, then
-                the phi_global mesh; kernels A-D must have launched
+                the phi_global mesh; kernels A-D must have launched, and P
+                and I (frontend.launch_counts) in every phase that drives
+                SobFusion (5-10)
   6. shipped    params_umbrella.ini unchanged (exact mode): 2 frames
   7. pyramid    the slice: umbrella + the production keys (WARP_WINDOW=2,
                 MOMENTUM=0.95, ALPHA=0.05, PYRAMID_LEVELS=2, MAX_ITER=1024,
@@ -196,7 +209,10 @@ Phases, one line each; any failure exits non-zero before the result lines:
                 line printed tagged [bench]
 The launch counts of each path are zeroed just before it and read just
 after; kernel A's count is the iterations that ran on the card (the
-device's counter), its launches after a stop are printed apart. The last
+device's counter), its launches after a stop are printed apart. Before the
+last three lines, the front end's line: {"frontend": [...]}, P and I with
+the kernel report's keys, their launches summed over phases 5-10 ("replaces"
+names the JAX package's XLA function: neither has a TPU kernel). The last
 three lines are the kernel report (JSON; launches summed over the paths
 above that run each kernel; each kernel's ms and device_ms, its plain
 version's time, the bound of its work at the shapes timed — the bytes it
@@ -209,7 +225,8 @@ nvidia-smi line and {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --kernels
 
-stops after phase 4 (the build, the kernel checks, the goldens).
+stops after phase 4 (the build, the kernel checks, the front end, the
+goldens).
 
     python3 chip_smoke.py --sharded
 
@@ -1079,6 +1096,165 @@ def check_gd_multi_loop(torch, kernels, solver, psi, tnp, tg, live, taps):
     kernels.reset_launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the front end, kernels P and I (sobfu_tpu_torch/ops/frontend.py)
+# ---------------------------------------------------------------------------
+
+# float operations of kernel P: a valid tap (the difference, its square, the
+# colour and spatial terms, the negation, exp, nb * w and the two sums); a
+# pixel's tail (the mean, its rounding, the truncation test, xl and yl, lam
+# and the dists); kernel I a voxel (the centre's three coordinates, 1 / z,
+# u and v, the image test and floors, psdf, the weight test, the scaled clamp)
+PRE_TAP_OPS, PRE_PIXEL_OPS, INTEGRATE_OPS = 9, 14, 24
+
+
+def frontend_depth(params, seed):
+    """int32 mm at the ini's 640x480: the main path's sphere (0.2 m, 0.8 m
+    away) before a wall at 1.6 m (past TRUNC_DEPTH), 1.5 mm of noise and 3%
+    holes."""
+    d = render_frames(params, 1, 0.0, 0.2)[0].astype(np.float64)
+    d = np.where(d > 0, d, 1600.0)
+    rng = np.random.default_rng(seed)
+    d += rng.normal(0.0, 1.5, d.shape)
+    d[rng.random(d.shape) < 0.03] = 0.0
+    return np.clip(np.round(d), 0, 65535).astype(np.int32)
+
+
+def valid_taps(H, W, k) -> int:
+    """Kernel P's valid taps over an H x W map (rows in [0, H - 2], columns
+    in [0, W - 2]): the work its window does, whatever the depths."""
+    r = k // 2
+    def per(n):
+        return sum(0 <= i + o <= n - 2 for i in range(n) for o in range(-r, k - r))
+
+    return per(H) * per(W)
+
+
+def torch_roundings(torch):
+    """How torch rounds, on the card, the two operations kernel I copies:
+    torch.addcmul (its product rounded, then the sum, or one fused
+    rounding) and a [3, 3] x [3, N] einsum (an FMA chain over j = 0, 1, 2
+    or 2, 1, 0, or separate products and sums). Fractions of 2^20 random
+    operands each form reproduces exactly, from float64 emulations."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    a, b, c = (rng.uniform(-2.0, 2.0, n).astype(np.float32) for _ in range(3))
+    f64 = lambda v: v.astype(np.float64)  # noqa: E731
+    r32 = lambda v: np.asarray(v, np.float64).astype(np.float32)  # noqa: E731
+    got = torch.addcmul(*(torch.as_tensor(v, device=dev) for v in (a, b, c))).cpu().numpy()
+    out = {"addcmul_fused": float(np.mean(got == r32(f64(a) + f64(b) * f64(c)))),
+           "addcmul_two_roundings": float(np.mean(got == r32(f64(a) + f64(r32(f64(b) * c)))))}
+    m = rng.uniform(-1.0, 1.0, (3, 3)).astype(np.float32)
+    v = rng.uniform(0.0, 1.0, (3, n)).astype(np.float32)
+    got = torch.einsum("ij,jn->in", torch.as_tensor(m, device=dev),
+                       torch.as_tensor(v, device=dev)).cpu().numpy()
+    prod = [f64(m[:, j:j + 1]) * f64(v[j:j + 1]) for j in range(3)]  # exact in float64
+    for label, order in (("einsum_fma_chain", (0, 1, 2)), ("einsum_fma_reversed", (2, 1, 0))):
+        acc = r32(prod[order[0]])
+        for j in order[1:]:
+            acc = r32(prod[j] + f64(acc))
+        out[label] = float(np.mean(got == acc))
+    sep = r32(f64(r32(prod[0])) + f64(r32(prod[1])))
+    out["einsum_separate"] = float(np.mean(got == r32(f64(sep) + f64(r32(prod[2])))))
+    return out
+
+
+def check_frontend(torch, params):
+    """Phase 3b: kernel P at the ini's 640x480 (k = 7, 5, 3, truncation on
+    and off, and 479 x 637) and kernel I at 128^3 (the cell's axis-aligned
+    pose, a z-slab at z_offset 64, 1.2 m of volume, and a pose turned 4
+    degrees about y and 2 about x) against their plain versions on the card; P and the axis-aligned
+    I bit for bit, the turned pose's voxels that read another pixel (over
+    1e-4 apart) counted and the rest within 1e-6. Returns {name: report row}
+    at the main path's shapes (k = 7 with the truncation; the axis-aligned
+    128^3 volume)."""
+    from sobfu_tpu_torch.ops import frontend, imgproc
+
+    dev = torch.device(DEVICE)
+    log("frontend", "torch on the card: " + json.dumps(torch_roundings(torch)))
+    sig = (params.bilateral_sigma_spatial, params.bilateral_sigma_depth)
+    intr, trunc = params.intr, params.icp_truncate_depth_dist
+    rows = {}
+    for H, W, k, cut in ((480, 640, 7, trunc), (480, 640, 7, 0.0), (480, 640, 5, trunc),
+                         (480, 640, 3, 0.0), (479, 637, 7, trunc)):
+        depth = torch.as_tensor(frontend_depth(params, k)[:H, :W].copy(), device=dev)
+        args = (depth, k, *sig, cut, intr)
+        got, ref = frontend.preprocess_depth(*args), frontend.preprocess_depth_plain(*args)
+        bad = int((got != ref).sum())
+        # the filtered mm behind each dists value: dists / (1 mm's dists), rounded
+        per_mm = imgproc.compute_dists(torch.ones_like(depth), intr).double()
+        mm = lambda d: torch.round(d.double() / per_mm)  # noqa: E731
+        log("frontend", f"preprocess_depth {H}x{W} k={k} truncate={cut}: {bad} pixels differ, "
+            f"max|d| {max_abs(got, ref):.3e} m, {float((mm(got) - mm(ref)).abs().max()):.0f} "
+            f"mm at most")
+        check(bad == 0, f"preprocess_depth {H}x{W} k={k} disagrees with its plain version")
+        if (H, W, k, cut) == (480, 640, 7, trunc):
+            n_ops = valid_taps(H, W, k) * PRE_TAP_OPS + H * W * PRE_PIXEL_OPS
+            rows["preprocess_depth"] = row(
+                max_abs(got, ref), timed(lambda: frontend.preprocess_depth(*args)),
+                plain_ms(lambda: frontend.preprocess_depth_plain(*args)),
+                nbytes(depth, got), n_ops)
+    dists = frontend.preprocess_depth(torch.as_tensor(frontend_depth(params, 3), device=dev), 7,
+                                      *sig, trunc, intr)
+    dims = (DIM, DIM, DIM)
+    rng = np.random.default_rng(7)
+    for label, rot, z_offset, nz, size in (
+            ("axis-aligned", 0.0, 0, DIM, 1.0), ("z-slab", 0.0, 64, 32, 1.0),
+            ("axis-aligned 1.2 m", 0.0, 0, DIM, 1.2), ("turned", 4.0, 0, DIM, 1.0),
+            ("turned z-slab", 4.0, 64, 32, 1.0)):
+        vs = size / DIM  # 1.2 m: no power of two, so addcmul's single rounding shows
+        tsdf = torch.as_tensor(rng.uniform(-1, 1, (nz,) + dims[1:]), dtype=torch.float32,
+                               device=dev)
+        weight = torch.as_tensor(rng.integers(0, 4, (nz,) + dims[1:]), dtype=torch.float32,
+                                 device=dev)
+        vol2cam = np.linalg.inv(np.eye(4, dtype=np.float32)) @ params.volume_pose
+        vol2cam = np.asarray(vol2cam, np.float32)
+        vol2cam[:2, 3] *= size
+        if rot:
+            a, b = np.deg2rad(rot), np.deg2rad(0.5 * rot)
+            ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+            rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+            vol2cam[:3, :3] = (ry @ rx).astype(np.float32)
+        args = (tsdf, weight, dists, vol2cam, intr, (vs,) * 3, params.tsdf_trunc_dist * size,
+                params.eta * size, not rot, z_offset)
+        (t, w), (pt, pw) = frontend.integrate_dists(*args), frontend.integrate_dists_plain(*args)
+        err = (t - pt).abs()
+        moved = (err > 1e-4) | (w != pw)
+        rest = float(err[~moved].max()) if bool((~moved).any()) else 0.0
+        seen = int((w != weight).sum())
+        log("frontend", f"integrate_dists {label} {nz}x{DIM}x{DIM} z_offset={z_offset}: "
+            f"{int(moved.sum())} voxels read another pixel, max|d| {rest:.3e} on the rest, "
+            f"bitwise {bitwise(t, pt) and bitwise(w, pw)}; {seen} voxels integrated")
+        check(seen > 1000, f"integrate_dists {label}: the frame integrated nothing")
+        if rot:
+            check(int(moved.sum()) <= 64 and rest <= 1e-6,
+                  f"integrate_dists {label} disagrees with its plain version")
+        else:
+            check(bitwise(t, pt) and bitwise(w, pw),
+                  f"integrate_dists {label} disagrees with its plain version")
+        if label == "axis-aligned":
+            n_bytes = nbytes(tsdf, weight, dists, t, w)
+            rows["integrate_dists"] = row(
+                max(max_abs(t, pt), max_abs(w, pw)),
+                timed(lambda: frontend.integrate_dists(*args)),
+                plain_ms(lambda: frontend.integrate_dists_plain(*args)),
+                n_bytes, tsdf.numel() * INTEGRATE_OPS)
+    for name, r in rows.items():
+        log("frontend", f"{name}: {r['ms']:.4f} ms, {r['device_ms']:.4f} ms device, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms")
+    return rows
+
+
+def frontend_report(frontend, rows, launches) -> str:
+    """The front end's line: kernels P and I in the kernel report's keys
+    ("replaces" names the JAX package's function: neither has a TPU kernel)."""
+    return json.dumps({"frontend": [
+        {"name": name, "route": "cuda", "source": frontend.KERNELS[name][0],
+         "replaces": frontend.KERNELS[name][1], "launches": launches[name], **rows[name]}
+        for name in frontend.launch_counts]})
+
+
 def check_goldens(torch, fields, solver):
     """Phase 4: the 16^3 golden fixture of tests/test_golden.py on the card."""
     from sobfu_tpu_torch.tsdf import init_sphere
@@ -1131,6 +1307,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
     fusion), if given, runs after each solve frame. Returns (launch counts
     of this path, the SobFusion)."""
     from sobfu_tpu_torch import mc, solver
+    from sobfu_tpu_torch.ops import frontend
     from sobfu_tpu_torch.pipeline import SobFusion
 
     StageClock = tool("profile_torch_frame").StageClock
@@ -1139,6 +1316,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
     fusion.need_inv_warps = False  # the no-log frame loop, as the CLI runs it
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    frontend.reset_launch_counts()
     max_reads = 0
     for i, depth in enumerate(frames):
         reads0 = sum(kernels.host_reads.values())
@@ -1180,7 +1358,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
               f"{kernels.GD_MULTI_LAUNCHES} chunks")
         if after is not None:
             after(i, fusion)
-    counts = dict(kernels.launch_counts)
+    counts = {**kernels.launch_counts, **frontend.launch_counts}
     mesh = mc.extract_mesh(
         fusion.phi_global.tsdf, fusion.phi_global.weight,
         fusion.phi_global.voxel_sizes(), pose=fusion.phi_global.pose,
@@ -1193,7 +1371,7 @@ def run_frames(torch, kernels, params, n_frames, phase, expect, step=0.006, radi
     levels = max(1, params.pyramid_levels)
     check(max_reads <= levels * (params.max_iter // kernels.GD_CHUNK + 2),
           f"{phase}: {max_reads} host reads in a frame")
-    for name in expect:
+    for name in (*expect, *frontend.launch_counts):
         check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
     state = (fusion.phi_global.tsdf, fusion.phi_global.weight, fusion.psi.data,
              fusion.psi_inv.data)
@@ -1291,7 +1469,7 @@ def run_compositive(torch, kernels, params, n_frames, step, expect, operands):
     check(mesh.n_triangles > 0, "compositive: empty psi_inv mesh")
     check(refresh["inverse_fixed_point"] > 0 and refresh["warp"] > 0,
           "compositive: the getter did not run C and B")
-    return {k: counts[k] + refresh[k] for k in counts}
+    return {k: counts[k] + refresh.get(k, 0) for k in counts}
 
 
 # tools/bench_multiscene_stream.py's scenes: a 0.25 m volume 0.15 m in front
@@ -3114,6 +3292,7 @@ def main(argv=None) -> int:
         run_bench_phase(torch, kernels)
         return 0
     results = check_kernels(torch, kernels, fields, solver)
+    front = check_frontend(torch, load_params(ini))
     check_goldens(torch, fields, solver)
     if args.kernels:
         return 0
@@ -3153,6 +3332,10 @@ def main(argv=None) -> int:
     all_kernels = tuple(kernels.launch_counts)
     launches = {name: sum(c[name] for c in runs) for name in all_kernels}
 
+    from sobfu_tpu_torch.ops import frontend
+
+    print(frontend_report(frontend, front, {
+        name: sum(c.get(name, 0) for c in runs) for name in frontend.launch_counts}))
     report = {"kernels": [
         {
             "name": name,

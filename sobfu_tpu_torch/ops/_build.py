@@ -55,6 +55,8 @@ SIGNATURES = {
         _P, _P, _P, _I, _I, _P, _P, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "sobfu_preprocess_depth": (_P, _P, _I, _I, _I, ctypes.c_double, _F, _I, _P, _P),
+    "sobfu_integrate_dists": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -29,6 +29,14 @@ def _shift2d(a: torch.Tensor, dy: int, dx: int, pad_value=0) -> torch.Tensor:
     return out
 
 
+def bilateral_weights(sigma_spatial: float, sigma_depth: float) -> tuple:
+    """(sig_space, sig_color) of the filter's exponent, Python floats: a tap
+    weighs exp(-((dx^2 + dy^2) * sig_space + (d - nb)^2 * sig_color)) with
+    sigma_depth in metres and depths in mm."""
+    sig_depth_mm = sigma_depth * 1000.0
+    return 0.5 / (sigma_spatial * sigma_spatial), 0.5 / (sig_depth_mm * sig_depth_mm)
+
+
 def bilateral_filter(depth: torch.Tensor, kernel_size: int, sigma_spatial: float,
                      sigma_depth: float) -> torch.Tensor:
     """Depth-aware bilateral filter on a mm depth map -> int32 mm.
@@ -42,9 +50,7 @@ def bilateral_filter(depth: torch.Tensor, kernel_size: int, sigma_spatial: float
     d = depth.to(torch.float32)
     k = int(kernel_size)
     r = k // 2
-    sig_space = 0.5 / (sigma_spatial * sigma_spatial)
-    sig_depth_mm = sigma_depth * 1000.0
-    sig_color = 0.5 / (sig_depth_mm * sig_depth_mm)
+    sig_space, sig_color = bilateral_weights(sigma_spatial, sigma_depth)
     yy = torch.arange(H, device=d.device)[:, None]
     xx = torch.arange(W, device=d.device)[None, :]
     sum1 = torch.zeros_like(d)
@@ -60,12 +66,20 @@ def bilateral_filter(depth: torch.Tensor, kernel_size: int, sigma_spatial: float
             )
             sum1 = sum1 + nb * w
             sum2 = sum2 + w
-    return torch.round(sum1 / sum2).to(torch.int32)
+    # a window whose weights all underflow (a hole on the last row or column
+    # among far neighbours) is 0 / 0: 0 mm, as the card converts NaN and as
+    # the JAX package's uint16 cast gives it
+    return torch.nan_to_num(torch.round(sum1 / sum2), nan=0.0).to(torch.int32)
+
+
+def max_depth_mm(max_dist_m: float) -> int:
+    """The truncation's limit in mm: float32 metres times 1000, truncated."""
+    return int(np.float32(max_dist_m) * np.float32(1000.0))
 
 
 def truncate_depth(depth: torch.Tensor, max_dist_m: float) -> torch.Tensor:
     """Zero out depths beyond max_dist metres (mm in, mm out)."""
-    max_mm = int(np.float32(max_dist_m) * np.float32(1000.0))
+    max_mm = max_depth_mm(max_dist_m)
     return torch.where(depth > max_mm, torch.zeros_like(depth), depth)
 
 

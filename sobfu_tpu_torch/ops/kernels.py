@@ -133,12 +133,12 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> int:
+def _check(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> int:
     """Validate a kernel operand; returns its device pointer."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

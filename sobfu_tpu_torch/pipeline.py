@@ -23,18 +23,17 @@ from sobfu_tpu_torch import core, fields, pyramid
 from sobfu_tpu_torch import solver as solver_mod
 from sobfu_tpu_torch.config import Params
 from sobfu_tpu_torch.fields import DeformationField
-from sobfu_tpu_torch.ops import imgproc, kernels
+from sobfu_tpu_torch.ops import frontend, kernels
 from sobfu_tpu_torch.tsdf import TsdfVolume, fuse_volumes, fuse_volumes_gated, integrate_dists
 
 
 def preprocess(depth: torch.Tensor, p: Params) -> torch.Tensor:
-    """Bilateral filter -> depth truncation -> dists (metres)."""
-    filtered = imgproc.bilateral_filter(
-        depth, p.bilateral_kernel_size, p.bilateral_sigma_spatial, p.bilateral_sigma_depth
+    """Bilateral filter -> depth truncation -> dists (metres): kernel P on the
+    card, its plain version on the CPU (``frontend.preprocess_depth``)."""
+    return frontend.preprocess_depth(
+        depth, p.bilateral_kernel_size, p.bilateral_sigma_spatial, p.bilateral_sigma_depth,
+        p.icp_truncate_depth_dist, p.intr,
     )
-    if p.icp_truncate_depth_dist > 0:
-        filtered = imgproc.truncate_depth(filtered, p.icp_truncate_depth_dist)
-    return imgproc.compute_dists(filtered, p.intr)
 
 
 def fused_frame_step(

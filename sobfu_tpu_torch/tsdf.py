@@ -58,49 +58,14 @@ def integrate_dists(
 
     z_offset: the global z of the volume's first row (a z-slab of a sharded
     volume integrates its own rows).
+
+    CPU tensors run the plain version (``frontend.integrate_dists_plain``);
+    CUDA tensors launch kernel I (``csrc/integrate.cu``) or raise.
     """
-    dev = tsdf.device
-    Z, Y, X = tsdf.shape
-    H, W = dists.shape
-    f32 = lambda a: torch.as_tensor(np.float32(a), device=dev)  # noqa: E731
-    fx, fy, cx, cy = (f32(v) for v in intr)
-    vsx, vsy, vsz = (f32(v) for v in voxel_sizes)
-    m = torch.as_tensor(np.asarray(vol2cam, np.float32), device=dev)
-    t = m[:3, 3]
-    if axis_aligned:
-        # a*b + c as one rounding (addcmul), as XLA fuses the JAX package's
-        # separable path into multiply-adds: the projection then lands on the
-        # same pixel and the tsdf matches bit for bit
-        ar = lambda n: torch.arange(n, dtype=torch.float32, device=dev) + 0.5  # noqa: E731
-        xs = torch.addcmul(t[0], ar(X), vsx)
-        ys = torch.addcmul(t[1], ar(Y), vsy)
-        zs = torch.addcmul(t[2], ar(Z) + float(z_offset), vsz)
-        inv_z = 1.0 / zs
-        u = torch.addcmul(cx, fx * xs[None, :], inv_z[:, None])  # f32[Z, X]
-        v = torch.addcmul(cy, fy * ys[None, :], inv_z[:, None])  # f32[Z, Y]
-        in_u = (u >= 0) & (u < W)
-        in_v = (v >= 0) & (v < H)
-        ui = torch.floor(u).long().clamp(0, W - 1)
-        vi = torch.floor(v).long().clamp(0, H - 1)
-        Dp = dists[vi[:, :, None], ui[:, None, :]]
-        cam_z = zs[:, None, None]
-        in_image = in_v[:, :, None] & in_u[:, None, :]
-    else:
-        vc = voxel_centers((Z, Y, X), voxel_sizes, device=dev)
-        vc[2] += f32(z_offset) * vsz
-        cam = torch.einsum("ij,jzyx->izyx", m[:3, :3], vc) + t[:, None, None, None]
-        u = fx * (cam[0] / cam[2]) + cx
-        v = fy * (cam[1] / cam[2]) + cy
-        in_image = (u >= 0) & (v >= 0) & (u < W) & (v < H)
-        ui = torch.floor(u).long().clamp(0, W - 1)
-        vi = torch.floor(v).long().clamp(0, H - 1)
-        Dp = torch.take(dists, vi * W + ui)
-        cam_z = cam[2]
-    valid = in_image & (Dp > 0.0) & (cam_z > 0.0)
-    psdf = Dp - cam_z
-    new_w = torch.where(psdf > -np.float32(eta), 1.0, 0.0)
-    new_t = _truncate(psdf, f32(trunc_dist))
-    return torch.where(valid, new_t, tsdf), torch.where(valid, new_w, weight)
+    from sobfu_tpu_torch.ops import frontend  # it imports this module
+
+    return frontend.integrate_dists(tsdf, weight, dists, vol2cam, intr, voxel_sizes, trunc_dist,
+                                    eta, axis_aligned, z_offset)
 
 
 def _blend_numerator(tsdf_g, weight_g, tsdf_n):

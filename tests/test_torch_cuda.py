@@ -1146,3 +1146,143 @@ def test_fidelity_scene_on_card_matches_the_cpu(cuda, production):
     assert got["iters_run"] == want["iters_run"]
     for key in ("energy_ratio", "mesh_rmse_voxels", "inverse_consistency_max_vox"):
         assert got[key] == pytest.approx(want[key], abs=1e-4, rel=0), key
+
+
+# ---------------------------------------------------------------------------
+# the front end: kernels P (frontend.preprocess_depth) and I
+# (frontend.integrate_dists), each against its plain version on the card
+# ---------------------------------------------------------------------------
+
+# params/params_umbrella.ini: the bilateral window's sigmas, TRUNC_DEPTH and
+# the intrinsics of its 640x480 camera
+FRONT_SIGMAS, FRONT_TRUNC, FRONT_INTR = (4.5, 0.04), 1.5, (570.342, 570.342, 320.0, 240.0)
+
+
+def _frontend_depth(H, W, seed=0):
+    """int32 mm: a 0.2 m sphere 0.8 m away before a wall at 1.6 m (past the
+    truncation), 1.5 mm of noise and 3% holes."""
+    from sobfu_tpu_torch.config import Intr
+
+    intr = Intr(*FRONT_INTR)
+    d = _scene_tool().render_prims_depth(H, W, *intr, [((0.02, -0.01, 0.8), 0.2)])
+    d = np.where(d > 0, d, 1600).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    d += rng.normal(0.0, 1.5, d.shape)
+    d[rng.random(d.shape) < 0.03] = 0.0
+    return np.clip(np.round(d), 0, 65535).astype(np.int32)
+
+
+def _frontend_counts():
+    from sobfu_tpu_torch.ops import frontend
+
+    return dict(frontend.launch_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,k,trunc", [(480, 640, 7, FRONT_TRUNC), (480, 640, 7, 0.0),
+                                         (480, 640, 5, FRONT_TRUNC), (480, 640, 3, 0.0),
+                                         (479, 637, 7, FRONT_TRUNC)])
+def test_frontend_preprocess_kernel_bitwise(cuda, H, W, k, trunc):
+    """Kernel P bit for bit with the plain chain (bilateral filter, the
+    truncation, the ray lengths) at the camera's 640x480 and an odd size."""
+    from sobfu_tpu_torch.ops import frontend
+
+    depth = torch.as_tensor(_frontend_depth(H, W), device=cuda)
+    args = (depth, k, *FRONT_SIGMAS, trunc, FRONT_INTR)
+    before = _frontend_counts()
+    got = frontend.preprocess_depth(*args)
+    assert _frontend_counts()["preprocess_depth"] == before["preprocess_depth"] + 1
+    want = frontend.preprocess_depth_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (H, W)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _frontend_volume(cuda, dim, z_offset=0, n_z=None, rotate_deg=0.0, size=1.0):
+    """The ini's 128^3 volume of 1 m (or ``size``) at (-size / 2, -size / 2,
+    0.3) seen from the identity pose (optionally turned about y and x), a
+    random previous (tsdf, weight) and the dists map of
+    :func:`_frontend_depth`: the arguments of frontend.integrate_dists."""
+    from sobfu_tpu_torch.ops import frontend
+
+    rng = np.random.default_rng(7)
+    nz = dim if n_z is None else n_z
+    tsdf = torch.as_tensor(rng.uniform(-1, 1, (nz, dim, dim)), dtype=torch.float32, device=cuda)
+    weight = torch.as_tensor(rng.integers(0, 4, (nz, dim, dim)), dtype=torch.float32,
+                             device=cuda)
+    depth = torch.as_tensor(_frontend_depth(480, 640, seed=3), device=cuda)
+    dists = frontend.preprocess_depth_plain(depth, 7, *FRONT_SIGMAS, FRONT_TRUNC, FRONT_INTR)
+    vol2cam = np.eye(4, dtype=np.float32)
+    vol2cam[:3, 3] = (-0.5 * size, -0.5 * size, 0.3)
+    if rotate_deg:
+        a, b = np.deg2rad(rotate_deg), np.deg2rad(0.5 * rotate_deg)
+        ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+        rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+        vol2cam[:3, :3] = (ry @ rx).astype(np.float32)
+    vs = size / dim
+    return (tsdf, weight, dists, vol2cam, FRONT_INTR, (vs, vs, vs), 8 * vs, 3 * vs,
+            not rotate_deg, z_offset)
+
+
+def _integrate_both(args):
+    from sobfu_tpu_torch.ops import frontend
+
+    before = _frontend_counts()
+    got = frontend.integrate_dists(*args)
+    assert _frontend_counts()["integrate_dists"] == before["integrate_dists"] + 1
+    return got, frontend.integrate_dists_plain(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z_offset,n_z,size", [(0, None, 1.0), (64, 32, 1.0), (0, None, 1.2)],
+                         ids=["volume", "z-slab", "1.2m"])
+def test_frontend_integrate_kernel_bitwise_axis_aligned(cuda, z_offset, n_z, size):
+    """Kernel I on the axis-aligned branch at 128^3 (the cell's pose), on a
+    z-slab of 32 rows at z_offset 64, and over 1.2 m (a voxel size that is no
+    power of two, so addcmul's single rounding shows), bit for bit with its
+    plain version; the voxels the frame does not see keep their values."""
+    args = _frontend_volume(cuda, 128, z_offset, n_z, size=size)
+    (t, w), (pt, pw) = _integrate_both(args)
+    assert torch.equal(t, pt) and torch.equal(w, pw)
+    assert int((w != args[1]).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z_offset,n_z", [(0, None), (64, 32)], ids=["volume", "z-slab"])
+def test_frontend_integrate_kernel_rotated_pose(cuda, z_offset, n_z):
+    """Kernel I on the general branch (a pose turned 4 degrees about y and 2
+    about x) against its plain version, whose einsum sums in cuBLAS's order:
+    a voxel whose centre projects across a pixel edge reads another pixel
+    and moves by the dists' step there (over 1e-4 here); at most 64 such
+    voxels in 2M, and the rest within 1e-6 with equal weights."""
+    (t, w), (pt, pw) = _integrate_both(_frontend_volume(cuda, 128, z_offset, n_z, 4.0))
+    err = (t - pt).abs()
+    moved = (err > 1e-4) | (w != pw)
+    assert int(moved.sum()) <= 64
+    assert float(err[~moved].max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_frontend_wrappers_validate_and_route(cuda):
+    """P takes int32 depth and I float32 volumes, else they raise; the frame
+    loop's preprocess and integration reach the kernels, counted in
+    frontend.launch_counts and not in kernels.launch_counts."""
+    from sobfu_tpu_torch import pipeline
+    from sobfu_tpu_torch.config import load_params
+    from sobfu_tpu_torch.ops import frontend
+
+    depth = torch.as_tensor(_frontend_depth(480, 640), device=cuda)
+    with pytest.raises(TypeError):
+        frontend.preprocess_depth(depth.float(), 7, *FRONT_SIGMAS, FRONT_TRUNC, FRONT_INTR)
+    args = list(_frontend_volume(cuda, 32))
+    args[0] = args[0].double()
+    with pytest.raises(TypeError):
+        frontend.integrate_dists(*args)
+    kernels.reset_launch_counts()
+    frontend.reset_launch_counts()
+    fusion = pipeline.SobFusion(load_params(os.path.join(ROOT, "params", "params_umbrella.ini")),
+                                device="cuda")
+    fusion(depth)
+    torch.cuda.synchronize()
+    assert frontend.launch_counts == {"preprocess_depth": 1, "integrate_dists": 1}
+    assert set(kernels.launch_counts) == set(kernels.KERNELS)
+    assert float(fusion.phi_global.weight.sum()) > 1000
